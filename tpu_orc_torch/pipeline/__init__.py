@@ -1,0 +1,1 @@
+"""See the package docstring of tpu_orc_torch."""
