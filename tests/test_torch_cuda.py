@@ -20,8 +20,10 @@ import torch
 from tpu_orc_torch import synthetic
 from tpu_orc_torch.align import locate as L
 from tpu_orc_torch.align import myers as M
+from tpu_orc_torch.align import pileup as P
 from tpu_orc_torch.demux import fused
 from tpu_orc_torch.demux.adapters import AdapterBank
+from tpu_orc_torch.io import encode
 
 pytestmark = pytest.mark.cuda
 
@@ -99,6 +101,36 @@ def test_myers_kernel_equals_plain(cuda, mode):
         rows = slice(32 * t, 32 * (t + 1))
         assert torch.equal(qd[rows], pd[rows])
         assert torch.equal(qp[rows], pp[rows])
+
+
+@pytest.mark.parametrize("entry", ["single", "multi"])
+def test_pileup_kernel_equals_plain(cuda, entry):
+    """Path bits on the region the traceback reads (read positions below
+    each read's length, words below its draft's ceil(len / 32)): one
+    500 bp draft, or six groups with drafts of 33 to 1,700 bp (2 to 54
+    words), a 1-read group, N in drafts and reads; each call is one
+    launch of its contract."""
+    rng = np.random.default_rng(8)
+    rnd = random.Random(8)
+    specs = ([(500, 100)] if entry == "single" else
+             [(40, 3), (500, 50), (1700, 9), (260, 1), (33, 20), (100, 8)])
+    drafts, groups = [], []
+    for L, R in specs:
+        d = _seqs(rng, 1, L, L + 1)[0]
+        drafts.append(encode.encode_codes(d))
+        groups.append([encode.encode_codes(synthetic.mutate(rnd, d, 0.05))
+                       for _ in range(R)])
+    tensors, _ = P._upload(drafts, groups, cuda)
+    before = P.LAUNCHES.snapshot()[entry]
+    got = P.path_bits_cuda(*tensors)
+    want = P.path_bits_plain(*tensors)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES.snapshot()[entry] == before + 1
+    peqs, dwords, tile_gid, texts, nl = tensors
+    mask = P.specified(dwords, tile_gid, nl, got.shape[1],
+                       got.shape[3]).expand_as(got)
+    assert int(mask.sum()) > 0
+    assert torch.equal(got[mask], want[mask])
 
 
 def test_best_takes_first_adapter_on_ties_on_card(cuda):

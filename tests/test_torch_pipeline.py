@@ -6,8 +6,10 @@ tpu_orc's run on one synthetic plate of 98 reads; the output trees must
 be byte-identical, except the timings (and the completion order of the
 concurrent bins) in metrics.json and run_report.json. The CLI's demux
 subcommand is held against tpu_orc's stage the same way. Another test
-runs the port in a fresh interpreter where ``import jax`` fails, as on
-the GPU host, which has no JAX.
+runs the port's ``run_all`` in a fresh interpreter where neither
+``import jax`` nor ``import tpu_orc`` works (the GPU host has no JAX, and
+the port imports nothing of tpu_orc), with each consensus pileup
+backend.
 """
 import json
 import os
@@ -20,6 +22,7 @@ import torch
 from tpu_orc.io.fastq import write_records
 from tpu_orc.pipeline import stages as ref_stages
 from tpu_orc_torch import cli, synthetic
+from tpu_orc_torch.cluster import consensus as port_consensus
 from tpu_orc_torch.pipeline import stages as port_stages
 
 from test_torch_stages import assert_same_tree
@@ -69,10 +72,16 @@ def test_run_all_equals_reference(tmp_path):
                 == _untimed(str(tmp_path / "ref" / name))), name
 
 
-def test_run_all_refuses_unported_paths(tmp_path):
+def test_run_all_refuses_unported_paths(tmp_path, monkeypatch):
     cfg = port_stages.PipelineConfig(str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError):
         port_stages.run_all("x.fastq", str(tmp_path), "d", "RNA", cfg)
+    # the device pileup backend is ported: run_all goes on to read its
+    # input
+    monkeypatch.setattr(port_consensus, "PILEUP_BACKEND", "device")
+    with pytest.raises(FileNotFoundError):
+        port_stages.run_all(str(tmp_path / "x.fastq"), str(tmp_path), "d",
+                            "COI", cfg)
     cfg.use_mesh = True
     with pytest.raises(NotImplementedError):
         port_stages.run_all("x.fastq", str(tmp_path), "d", "COI", cfg)
@@ -105,21 +114,38 @@ def test_cli_refuses_absent_cuda(tmp_path, monkeypatch):
 
 
 JAX_FREE = r"""
-import json, os, sys, tempfile
+import contextlib, io, json, os, sys, tempfile
 sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["tpu_orc"] = None      # and so does any import of tpu_orc
+import torch
+torch.set_num_threads(1)
 from tpu_orc_torch import synthetic
-from tpu_orc_torch.demux.adapters import AdapterBank
-from tpu_orc_torch.demux.demux import dual_round_demux_stream
-import tpu_orc_torch.cli, tpu_orc_torch.pipeline.stages  # the whole path
+from tpu_orc_torch.cluster import consensus
+from tpu_orc_torch.io.fastq import write_records
+from tpu_orc_torch.pipeline.stages import PipelineConfig, run_all
+import tpu_orc_torch.cli  # the whole path
 d = synthetic.write_adapter_dir(tempfile.mkdtemp())
-recs, _ = synthetic.make_plate(3, n5=3, n27=2, seed=2, insert_len=120)
-sp5 = AdapterBank.from_fasta(os.path.join(d, synthetic.FILES[0]), 0.1)
-sp27 = AdapterBank.from_fasta(os.path.join(d, synthetic.FILES[1]), 0.1)
-rep = dual_round_demux_stream(iter(recs), sp5, sp27, "x", tempfile.mkdtemp())
-print(json.dumps({"bins": rep["final_bins"],
-                  "jax": sorted(m for m in sys.modules
-                                if m.split(".")[0] == "jax"
-                                and sys.modules[m] is not None)}))
+recs, _ = synthetic.make_plate(10, n5=2, n27=2, seed=2, insert_len=300)
+fq = os.path.join(tempfile.mkdtemp(), "plate.fastq")
+write_records(fq, recs, fmt="fastq")
+cons = {}
+for backend in ("native", "device"):
+    consensus.PILEUP_BACKEND = backend
+    out = tempfile.mkdtemp()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep = run_all(fq, out, "x", "COI",
+                      PipelineConfig(d, device="cpu", bin_workers=1))
+    sdir = os.path.join(out, "sorted")
+    cons[backend] = {b: open(os.path.join(sdir, b, "consensusfile.fasta")
+                             ).read() for b in sorted(os.listdir(sdir))
+                     if os.path.isdir(os.path.join(sdir, b))}
+print(json.dumps({"bins": rep["demux"]["bins"],
+                  "groups": sum(b["species_groups"]
+                                for b in rep["barcodes"].values()),
+                  "same": cons["native"] == cons["device"],
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in ("jax", "tpu_orc")
+                                   and sys.modules[m] is not None)}))
 """
 
 
@@ -130,5 +156,5 @@ def test_port_runs_without_jax():
                          cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["jax"] == []
-    assert len(res["bins"]) == 6 and set(res["bins"].values()) == {3}
+    assert res["loaded"] == []
+    assert res["bins"] == 4 and res["groups"] >= 3 and res["same"]

@@ -10,6 +10,7 @@ contigs. The input holds a fused read, which must come out as
 ``fused_reads: 1, rescued_segments: 2``. ``Reorienter.FORCE_SCHEDULE``
 is left as it is on both sides.
 """
+import dataclasses
 import gzip
 import os
 
@@ -54,6 +55,17 @@ def assert_same_tree(got_root, want_root, skip=()):
     assert sorted(got) == sorted(want)
     for rel in want:
         assert got[rel] == want[rel], rel
+
+
+def fields_of(x):
+    """``x`` with every record as its (id, desc, seq, qual) tuple: the
+    port's ``Record`` is its own class, and dataclass equality compares
+    classes."""
+    if dataclasses.is_dataclass(x):
+        return dataclasses.astuple(x)
+    if isinstance(x, (list, tuple)):
+        return [fields_of(v) for v in x]
+    return x
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +150,7 @@ def test_clean_primers_equals_reference(tmp_path, adapters):
     want, wrep = ref_clean.clean_primers(contigs, coi, rna,
                                          outdir=str(tmp_path / "ref"),
                                          name="bc")
-    assert got == want
+    assert fields_of(got) == fields_of(want)
     assert vars(grep) == vars(wrep)
     assert wrep.trimmed > 0 and wrep.failsafe_dropped > 0
     assert wrep.round2_trimmed > 0

@@ -1,17 +1,25 @@
 """tpu_orc_torch — the PyTorch/CUDA port of tpu_orc for one NVIDIA H100.
 
 A second package beside ``tpu_orc`` (the JAX reference, which stays as
-it is). It imports ``torch`` and never ``jax``: host modules of
-``tpu_orc`` that import no JAX are reused as they are, the ones that do
-are copied here with their device seam changed, and every Pallas kernel
-on the path becomes a hand-written CUDA kernel (``csrc/``), built with
-``nvcc`` at first use (``_build.py``), with a plain PyTorch version
-beside it that the CPU tests hold against ``tpu_orc``.
+it is). It imports ``torch`` and never ``jax``, and nothing of
+``tpu_orc``: every module of ``tpu_orc`` that it needs is copied here
+(each copy's docstring names the file it mirrors), with its device seam
+changed where that module used JAX. Every Pallas kernel on the path
+becomes a hand-written CUDA kernel (``csrc/``), built with ``nvcc`` at
+first use (``_build.py``), with a plain PyTorch version beside it that
+the CPU tests hold against ``tpu_orc``.
 
-    align/     locate + Myers: kernel wrappers and plain versions
-    demux/     reorient, dual-round demux (fused on CUDA), primer clean
-    cluster/   scoring (Myers backends), sorter engine, writers
-    pipeline/  stage graph of the COI main path (run_all)
+    io/        FASTQ/FASTA reader and writer, base encoding
+    align/     locate, Myers and path-bits pileup: kernel wrappers and
+               plain versions; the flag algebra (spec)
+    native/    the C++ oracle (host scorer, consensus traceback)
+    demux/     reorient, dual-round demux (fused on CUDA), primer clean,
+               cutadapt-schema reports
+    cluster/   scoring (Myers backends), sorter engine, consensus,
+               union-find, writers
+    pipeline/  stage graph of the COI main path (run_all), qc, summary
+    analysis/  the stage-00 figures
+    utils/     run metrics
     synthetic  seeded synthetic banks and plate reads (tests, smoke)
 """
 

@@ -25,7 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
-from tpu_orc.align.spec import Flag, FRONT, BACK, DEFAULT_MIN_OVERLAP
+from .spec import Flag, FRONT, BACK, DEFAULT_MIN_OVERLAP
 
 from .. import _build
 from .tables import LocateResult

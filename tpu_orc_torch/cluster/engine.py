@@ -1,9 +1,13 @@
 """Amplicon-sorter-equivalent clustering engine (deterministic, device-hot).
 
-Copy of ``tpu_orc/cluster/engine.py``; only the imports change: the
-scorer is this package's (``cluster/scoring.py``), the consensus, union-
-find and native code are ``tpu_orc``'s (they import no JAX). The seeded
-numpy RNG stays numpy: byte-identical consensus depends on it.
+Copy of ``tpu_orc/cluster/engine.py``; the imports are this package's,
+and the device seam: ``AmpliconSorter(..., device=)`` names the torch
+device of every consensus pileup (``cluster/consensus.py``: with the
+``device`` backend, the path-bits kernel on CUDA or its plain version on
+the CPU). The device is not a field of ``SorterConfig`` (its fields are
+echoed into ``results.txt``) and is not taken from the scorer (small
+bins score on the native backend whatever the device). The seeded numpy
+RNG stays numpy: byte-identical consensus depends on it.
 
 Orchestrates the algorithm of the reference's amplicon_sorter.py
 (SURVEY.md §2.2/§3.2) with the same thresholds and stage structure, but:
@@ -33,16 +37,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tpu_orc import native
-from tpu_orc.cluster import consensus as _consensus_mod
-from tpu_orc.cluster.consensus import (build_consensus, build_consensus_iupac,
-                                       build_consensus_multi,
-                                       consensus_direction)
-from tpu_orc.cluster.unionfind import UnionFind
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record
-
+from .. import native
+from ..io import encode
+from ..io.fastq import Record
+from . import consensus as _consensus_mod
+from .consensus import (build_consensus, build_consensus_iupac,
+                        build_consensus_multi, consensus_direction)
 from .scoring import DeviceScorer, PairHits
+from .unionfind import UnionFind
 
 
 @dataclass
@@ -105,10 +107,12 @@ def estimate_ssg(sims: np.ndarray) -> float:
 
 class AmpliconSorter:
     def __init__(self, config: SorterConfig = SorterConfig(),
-                 scorer: Optional[DeviceScorer] = None):
+                 scorer: Optional[DeviceScorer] = None, device="cuda"):
         self.cfg = config
         self.rng = np.random.default_rng(config.seed)
         self.scorer = scorer or DeviceScorer(tile=config.tile)
+        # torch device of the consensus pileup's device backend
+        self.device = device
 
     # ------------------------------------------------------------------
     def sort_records(self, records: Sequence[Record]) -> SortResult:
@@ -219,8 +223,8 @@ class AmpliconSorter:
         mem = self._sample_members(members, sample_n)
         codes = consensus_direction([self.codes[i] for i in mem])
         if self.cfg.ambiguous:
-            return build_consensus_iupac(codes)
-        return encode.decode(build_consensus(codes))
+            return build_consensus_iupac(codes, device=self.device)
+        return encode.decode(build_consensus(codes, device=self.device))
 
     def _group_consensus_multi(self, member_lists: Sequence[Sequence[int]],
                                sample_n: int) -> List[str]:
@@ -240,7 +244,8 @@ class AmpliconSorter:
                 [self.codes[i] for i in self._sample_members(m, sample_n)])
             for m in member_lists]
         return [encode.decode(c)
-                for c in build_consensus_multi(groups_codes)]
+                for c in build_consensus_multi(groups_codes,
+                                               device=self.device)]
 
     def _hw_sim(self, a: str, b: str) -> float:
         """Reference distance(a, b, 'HW') incl. fwd/rc max
@@ -480,7 +485,8 @@ class AmpliconSorter:
             if len(good) < 20:
                 good = list(order[-20:])
             sample = good[-50:]
-            new_c = build_consensus([member_codes[k] for k in sample])
+            new_c = build_consensus([member_codes[k] for k in sample],
+                                    device=self.device)
             iden = self._nw_sim(new_c, consensus)
             consensus = new_c
             if iden >= 1.0:

@@ -19,7 +19,7 @@ import csv
 import os
 from typing import Dict, List, Sequence
 
-from tpu_orc.io.fastq import Record, write_records
+from ..io.fastq import Record, write_records
 
 from .engine import SortResult
 
@@ -122,8 +122,8 @@ def _write_alignment(path: str, consensus: str,
     column space (cluster/consensus._align_rows semantics)."""
     import numpy as np
 
-    from tpu_orc.cluster.consensus import GAP, _align_rows
-    from tpu_orc.io import encode
+    from .consensus import GAP, _align_rows
+    from ..io import encode
     codes = [encode.encode_codes(r.seq.upper()) for r in members]
     aln = _align_rows(encode.encode_codes(consensus.upper()), codes)
     sym = np.array(list("ACGTN"), dtype="<U1")

@@ -23,7 +23,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from tpu_orc.io import encode
+from ..io import encode
 
 from ..align import myers
 
@@ -169,7 +169,7 @@ class DeviceScorer:
         return d   # one fetch (pos stays on device)
 
     def _allvsall_native(self, codes_list, band, keep_threshold) -> PairHits:
-        from tpu_orc import native
+        from .. import native
         n = len(codes_list)
         D = native.all_vs_all(codes_list, band=band)
         lens = np.array([len(c) for c in codes_list])
@@ -186,7 +186,7 @@ class DeviceScorer:
         low_i, low_j = np.nonzero(computed & (sims < 0.5))
         from collections import defaultdict
 
-        from tpu_orc.io import encode as _enc
+        from ..io import encode as _enc
         rc_cache: dict = {}
         byi = defaultdict(list)
         for i, j in zip(low_i, low_j):
@@ -286,8 +286,8 @@ class DeviceScorer:
         """One threaded native crossing per read (all gated consensuses
         batched) + one per rc-retry subset, instead of one ctypes call
         per (read, consensus) pair — identical per-pair arithmetic."""
-        from tpu_orc import native
-        from tpu_orc.io import encode as _enc
+        from .. import native
+        from ..io import encode as _enc
         ccods = [np.asarray(c) for c in cons_codes]
         for r, rcod in enumerate(read_codes):
             rcod = np.asarray(rcod)

@@ -24,8 +24,8 @@ from typing import List
 
 import numpy as np
 
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import read_fasta
+from ..io import encode
+from ..io.fastq import read_fasta
 
 from ..align.tables import make_k_table, make_n_prefix
 

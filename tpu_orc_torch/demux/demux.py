@@ -39,9 +39,9 @@ import numpy as np
 
 import torch
 
-from tpu_orc.align.spec import FRONT, BACK, DEFAULT_MIN_OVERLAP
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record, write_records
+from ..align.spec import FRONT, BACK, DEFAULT_MIN_OVERLAP
+from ..io import encode
+from ..io.fastq import Record, write_records
 
 from ..align.locate import (_mode_of, locate_collect, locate_dispatch,
                             tables_for_bank)
@@ -142,7 +142,7 @@ def _locate_native_small(bank: AdapterBank, seqs, flags, min_overlap,
     if getattr(bank, "_custom_k", False):
         return None  # bank overrides the floor(e*eff) rule (reorient)
     try:
-        from tpu_orc import native
+        from .. import native
         ref_masks = [encode.encode_ref_masks(s) for s in bank.seqs]
         qm = [encoder(s) for s in seqs]
         out, valid = native.locate_batch(ref_masks, qm,
@@ -480,7 +480,7 @@ class _BinWriters:
         self._fh: Dict[str, object] = {}
 
     def write(self, path: str, recs: Sequence[Record]) -> None:
-        from tpu_orc.io.fastq import _open
+        from ..io.fastq import _open
         fh = self._fh.get(path)
         if fh is None:
             os.makedirs(os.path.dirname(os.path.abspath(path)),
@@ -510,7 +510,7 @@ def dual_round_demux_stream(record_iter, sp5: AdapterBank,
     records. Outputs (bins, JSON reports, counters) are identical to
     the list API; per-bin files stream through held-open gz handles.
     """
-    from tpu_orc.demux.report import RoundReportAccum
+    from .report import RoundReportAccum
     fused = None
     if _use_fused(sp5, sp27rc):
         from .fused import FusedDemux

@@ -34,9 +34,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from tpu_orc.align.spec import DEFAULT_MIN_OVERLAP
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record
+from ..align.spec import DEFAULT_MIN_OVERLAP
+from ..io import encode
+from ..io.fastq import Record
 
 from ..align.locate import BankTables, locate_tiles
 from .adapters import AdapterBank

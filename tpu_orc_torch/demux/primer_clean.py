@@ -33,9 +33,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tpu_orc.align.spec import FRONT, BACK
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record, read_fasta, write_records
+from ..align.spec import FRONT, BACK
+from ..io import encode
+from ..io.fastq import Record, read_fasta, write_records
 
 from .adapters import AdapterBank
 from .demux import assign_reads, _best_per_read, locate_batch

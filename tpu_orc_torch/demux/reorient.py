@@ -85,9 +85,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tpu_orc.align.spec import Flag
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record, write_records
+from ..align.spec import Flag
+from ..io import encode
+from ..io.fastq import Record, write_records
 
 from .adapters import AdapterBank
 from .demux import locate_batch
@@ -152,7 +152,7 @@ def build_primer_bank(primer_fasta: str, q: float, device: str = "cpu"
     over the FULL primer length, Ns included (spec rule 2 — pychopper
     passes k to edlib on the raw length; cutadapt-style N exclusion
     does NOT apply here)."""
-    from tpu_orc.io.fastq import read_fasta
+    from ..io.fastq import read_fasta
     pairs = []
     for rec in read_fasta(primer_fasta):
         pairs.append((rec.id, rec.seq.upper()))
@@ -456,7 +456,7 @@ class Reorienter:
         records = list(records)
         # spec rule 6: mean-Q filter before classification (one
         # segmented reduction over the whole batch; mean_q_batch)
-        from tpu_orc.io.fastq import mean_q_batch
+        from ..io.fastq import mean_q_batch
         meanq = mean_q_batch([r.qual for r in records])
         kept: List[Record] = []
         for i, r in enumerate(records):
@@ -614,7 +614,7 @@ def reorient_file(in_path: str, primer_fasta: str, config_path: str,
     file fits one block; multi-block runs return stats alone (the
     pipeline consumes the written files, not the lists).
     """
-    from tpu_orc.io.fastq import _open, read_records
+    from ..io.fastq import _open, read_records
     with open(config_path) as fh:
         config_text = fh.read()
     r = Reorienter(primer_fasta, config_text, cfg)

@@ -1,17 +1,18 @@
 """Stage graph of the COI main path, on one torch device.
 
 Copy of ``tpu_orc/pipeline/stages.py``; the device seam:
-``PipelineConfig.device`` names the torch device of every locate and
-Myers call ("cuda": the kernels of ``csrc/``; "cpu": their plain
-versions), and ``run_all`` (:244) differs in four places:
+``PipelineConfig.device`` names the torch device of every locate, Myers
+and path-bits pileup call ("cuda": the kernels of ``csrc/``; "cpu":
+their plain versions). ``stage_sort`` hands it to the sorter for the
+consensus pileup (the ``device`` backend of ``ORC_PILEUP_BACKEND``),
+whichever backend scores the bin. ``run_all`` (:244) differs in three
+places:
 
 * it raises ``NotImplementedError`` up front for a non-COI amplicon:
   stage 05a (rRNA) is not ported yet;
 * it raises for ``use_mesh``: the multi-device path is not ported;
-* it raises unless the consensus pileup backend (``ORC_PILEUP_BACKEND``)
-  is ``native``: the device pileup of ``tpu_orc.cluster.consensus``
-  imports JAX;
-* it never opens ``utils.profiling.device_trace`` (a jax.profiler trace).
+* it never opens ``utils.profiling.device_trace`` (a jax.profiler trace,
+  not ported yet).
 
   00 qc         raw.fastq            -> <name>_nanoplot/
   01 reorient   raw.fastq            -> pychopped/<name>_pass.fastq (+aux)
@@ -32,10 +33,9 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict
 
-from tpu_orc.cluster import consensus as _consensus_mod
-from tpu_orc.io.fastq import read_records
-from tpu_orc.pipeline.qc import write_stats
-from tpu_orc.pipeline.summary import summarize_barcode_dir
+from ..io.fastq import read_records
+from .qc import write_stats
+from .summary import summarize_barcode_dir
 
 from ..cluster.engine import AmpliconSorter, SorterConfig
 from ..cluster.output import write_barcode_consensus, write_sort_outputs
@@ -132,12 +132,12 @@ def stage_sort(bin_fastq: str, outdir: str, barcode: str, prefix: str,
                           device=cfg.device)
     if sum(len(r.seq) for r in records) <= NATIVE_SMALL_BIN_NT:
         try:
-            from tpu_orc import native
+            from .. import native
             native.lib()  # no compiler / read-only dir -> device path
             scorer = DeviceScorer(tile=cfg.sorter.tile, backend="native")
         except Exception:
             pass
-    sorter = AmpliconSorter(cfg.sorter, scorer=scorer)
+    sorter = AmpliconSorter(cfg.sorter, scorer=scorer, device=cfg.device)
     result = sorter.sort_records(records)
     sorted_dir = os.path.join(outdir, "sorted", barcode)
     # results.txt parameter echo (the reference's save_arguments writes
@@ -198,7 +198,7 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
     """00 -> 05b on one COI dataset FASTQ. Returns a run report dict and
     writes run_report.json + metrics.json (per-stage wall time and
     throughput)."""
-    from tpu_orc.utils.profiling import Metrics
+    from ..utils.profiling import Metrics
 
     if amplicon.upper() != "COI":
         raise NotImplementedError(
@@ -206,10 +206,6 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
             "COI amplicon only")
     if cfg.use_mesh:
         raise NotImplementedError("the multi-device path is not ported")
-    if _consensus_mod.PILEUP_BACKEND != "native":
-        raise NotImplementedError(
-            f"ORC_PILEUP_BACKEND={_consensus_mod.PILEUP_BACKEND!r}: only "
-            f"the native consensus pileup is ported")
     os.makedirs(outdir, exist_ok=True)
     report: Dict = {"dataset": dataset, "amplicon": amplicon}
     met = Metrics(run=dataset)

@@ -28,8 +28,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record
+from .io import encode
+from .io.fastq import Record
 
 FILES = ("M13_amplicon_indices_forward.fa",
          "M13_amplicon_indices_reverse_rc.fa",
@@ -177,7 +177,7 @@ def codes(seqs, width: int):
 
 def identity(a: str, b: str) -> float:
     """1 - NW edit distance / longer length (the native C++ oracle)."""
-    from tpu_orc import native
+    from . import native
     d = native.edit_distance(encode.encode_codes(a), encode.encode_codes(b))
     return 1.0 - d / max(len(a), len(b), 1)
 
