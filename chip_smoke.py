@@ -1,6 +1,8 @@
 """GPU smoke run of tpu_orc_torch: build the CUDA kernels, hold each one
 against its plain PyTorch version on the card, then drive the COI main
-path (run_all) on a synthetic 96-bin plate and check what comes out.
+path (run_all) on a synthetic 96-bin plate, and the rRNA path with the
+Kogge-Stone locate on a synthetic 96-bin rRNA plate, and check what
+comes out.
 
     python3 chip_smoke.py
 
@@ -30,13 +32,28 @@ Phases:
   7. run_all again with the consensus pileup's device backend
      (ORC_PILEUP_BACKEND=device): both path-bits contracts launched, and
      every consensusfile.fasta and primerless/ file byte-identical to
-     phase 6's.
+     phase 6's;
+  8. Kogge-Stone locate kernel vs its plain version, FRONT/BACK/INFIX, at
+     phase 2's reads (16,384 x L 512) and at 2,048 rRNA reads x L 3,584
+     with some empty reads: all 8 outputs equal, and equal to the
+     wavefront kernel's at the pipeline's min_overlap 3;
+  9. Viterbi kernel vs plain: 8 sequences x 3,584 positions against the
+     default 18S profile, the reversed default 28S profile and a random
+     1,800-node profile; score bits, end position and end node equal;
+ 10. run_all -a RNA with TPU_ORC_LOCATE_IMPL=ks on a plate of 12 SP5 x 8
+     SP27 bins x 24 reads of 3.2-3.6 kb rDNA, one bin enlarged to 400
+     reads of two templates: only the KS locate kernels launched, the
+     Viterbi and Myers kernels launched, an 18S and a 28S hit in every
+     bin; then stages 01-02 again with the wavefront locate, their files
+     byte-identical to the KS run's.
 Prints a JSON line of per-kernel numbers, the card line, and last the
 result line. Exits non-zero, printing no result, when any phase fails or
-there is no CUDA device. Times are medians of 5 timed runs after a
-warm-up, from CUDA events; the tolerance of every comparison is zero
-(integer outputs). A kernel's ``launches`` are counted over the run_all
-of its path (phase 6 for locate and Myers, phase 7 for the pileup).
+there is no CUDA device. Times are medians of 5 timed runs (3 for the
+plain versions of phases 8 and 9) after a warm-up, from CUDA events; the
+tolerance of every comparison is zero (integer outputs, and float32
+scores compared bit for bit). A kernel's ``launches`` are counted over
+the run_all of its path (phase 6 for the wavefront locate and Myers,
+phase 7 for the pileup, phase 10 for the KS locate and the Viterbi).
 
 ``bound_ms`` is the least time the card could take for the kernel's work
 at these inputs: the larger of the bytes it must move (each input read
@@ -45,9 +62,12 @@ operations over the int32 issue rate, 132 SMs x 64 lanes x 1.98 GHz =
 1.67e13/s (the float32 peak of 67 TFLOP/s is 132 x 128 lanes x 2 x 1.98
 GHz; an SM has half as many int32 lanes). Operations are counted from
 this run's data: per DP cell of locate 16 (compares, adds and selects of
-csrc/locate.cu's inner loop), per 32-bit word step of Myers and of the
-pileup 20 (the bit-vector recurrence). No single PyTorch call computes
-these dynamic programs, so ``library_ms`` is null.
+csrc/locate.cu's inner loop; the same count for the KS kernel, which
+computes the same contract), per 32-bit word step of Myers and of the
+pileup 20 (the bit-vector recurrence). The Viterbi's are float32: 15 per
+(position, node) (9 adds and 6 max of _viterbi_kernel's step), over the
+float32 issue rate, 132 x 128 lanes x 1.98 GHz = 3.35e13/s. No single
+PyTorch call computes these dynamic programs, so ``library_ms`` is null.
 """
 import json
 import os
@@ -60,7 +80,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "smoke")
 BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 INT_OPS_PER_S = 132 * 64 * 1.98e9  # int32 issue rate
-OPS_PER_CELL = {"locate": 16, "myers": 20, "pileup": 20}
+FP32_OPS_PER_S = 132 * 128 * 1.98e9  # float32 issue rate (no FMA)
+OPS_PER_CELL = {"locate": 16, "myers": 20, "pileup": 20, "viterbi": 15}
 
 
 def card_line() -> str:
@@ -87,6 +108,19 @@ def cuda_ms(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
+def read_tree(root):
+    """{relative path: bytes} of every file under root; .gz files are
+    decompressed (their headers carry a write time)."""
+    import gzip
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            with (gzip.open if f.endswith(".gz") else open)(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
 def max_abs_err(x, y) -> int:
     return int((x.long() - y.long()).abs().max()) if x.numel() else 0
 
@@ -95,11 +129,27 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = INT_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    integer operations over the int32 issue rate."""
-    tb, to = n_bytes / BYTES_PER_S * 1e3, n_ops / INT_OPS_PER_S * 1e3
+    operations over their issue rate (int32 unless given)."""
+    tb, to = n_bytes / BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ptxas_summary(log: str):
+    """[(entry function, registers, stack frame, spill bytes)] from an
+    ``nvcc -Xptxas -v`` log."""
+    out, fn, frame = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "Used" in ln and "registers" in ln and fn:
+            regs = ln.split("Used")[1].split(",")[0].strip()
+            out.append((fn, regs, frame))
+            fn = None
+    return out
 
 
 def host_ms(fn, reps=5):
@@ -137,8 +187,8 @@ class Smoke:
             self.failed.append(name)
 
     def record(self, name, source, replaces, err, ms, plain_ms, n_bytes,
-               n_ops):
-        bound_ms, bound_by = bound(n_bytes, n_ops)
+               n_ops, ops_per_s=INT_OPS_PER_S):
+        bound_ms, bound_by = bound(n_bytes, n_ops, ops_per_s)
         self.kernels[name] = {"name": name, "route": "cuda",
                               "source": source, "replaces": replaces,
                               "launches": 0, "max_abs_err": err,
@@ -147,7 +197,7 @@ class Smoke:
                               "library_ms": None}
         print(f"   {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes:.4g} B, "
-              f"{n_ops:.4g} int ops), max_abs_err {err}", flush=True)
+              f"{n_ops:.4g} ops), max_abs_err {err}", flush=True)
 
     def launches(self, counts):
         """Set each kernel's ``launches`` from one run_all's counters."""
@@ -166,9 +216,8 @@ class Smoke:
         print(f"kernel build (one nvcc per source, in parallel): "
               f"{t['build_s']:.1f} s")
         for name, log in _build.PTXAS_LOG.items():
-            regs = [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "stack frame" in ln]
-            print(f"   {name} ptxas: " + " | ".join(regs[:4]))
+            for fn, regs, frame in ptxas_summary(log):
+                print(f"   {name} ptxas {fn}: {regs}; {frame}")
         self.adapters = synthetic.write_adapter_dir(
             os.path.join(WORK, "adapters"))
 
@@ -181,26 +230,33 @@ class Smoke:
             self._reads = synthetic.read_masks([r.seq for r in recs], 512)
         return self._reads
 
+    def banks(self):
+        """The locate banks of the main path by mode: SP5 (FRONT), SP27-rc
+        (BACK) and the reorient primer bank with its custom k (INFIX)."""
+        from tpu_orc_torch.demux.adapters import AdapterBank
+        from tpu_orc_torch.demux.reorient import build_primer_bank
+        a = self.adapters
+        return {
+            "front": AdapterBank.from_fasta(
+                os.path.join(a, "M13_amplicon_indices_forward.fa"), 0.1,
+                "cuda"),
+            "back": AdapterBank.from_fasta(
+                os.path.join(a, "M13_amplicon_indices_reverse_rc.fa"), 0.1,
+                "cuda"),
+            "infix": build_primer_bank(
+                os.path.join(a, "M13_seqs_for_pychopper.fa"), 0.8,
+                "cuda")[0],
+        }
+
     # -- phase 2 ---------------------------------------------------------
     def locate(self):
         import numpy as np
         torch = self.torch
         from tpu_orc_torch.align import locate as L
-        from tpu_orc_torch.demux.adapters import AdapterBank
-        from tpu_orc_torch.demux.reorient import build_primer_bank
         masks, lens = self.reads()
-        a = self.adapters
-        banks = {
-            "front": AdapterBank.from_fasta(
-                os.path.join(a, "M13_amplicon_indices_forward.fa"), 0.1),
-            "back": AdapterBank.from_fasta(
-                os.path.join(a, "M13_amplicon_indices_reverse_rc.fa"), 0.1),
-            "infix": build_primer_bank(
-                os.path.join(a, "M13_seqs_for_pychopper.fa"), 0.8)[0],
-        }
         rt = torch.from_numpy(np.ascontiguousarray(masks.T)).cuda()
         ln = torch.from_numpy(lens).cuda()
-        for mode, bank in banks.items():
+        for mode, bank in self.banks().items():
             tabs = L.tables_for_bank(bank, mode, 3).tensors("cuda")
             A = len(bank)
             got = L.locate_cuda(tabs, rt, ln, mode, A)
@@ -401,24 +457,23 @@ class Smoke:
                              for r in recs))
         return fq, len(recs)
 
-    def run_all(self, out, backend):
+    def run_all(self, out, fq, n_reads, amplicon, big, backend="native"):
         """``cli run-all --device cuda`` in this process with the given
         consensus pileup backend, every launch counter set to 0 just
-        before; returns (report, wall s, launch counts)."""
+        before; returns (report, launch counts)."""
         import contextlib
         import io
         import shutil
         from tpu_orc_torch import cli
         from tpu_orc_torch.align import locate as L, myers as M, pileup as P
         from tpu_orc_torch.cluster import consensus
-        if not hasattr(self, "fq"):
-            self.fq, self.n_reads = self.plate()
+        from tpu_orc_torch.rrna import hmm as H
         shutil.rmtree(out, ignore_errors=True)
-        argv = ["run-all", self.fq, "-o", out, "-n", "plate", "-a", "COI",
+        argv = ["run-all", fq, "-o", out, "-n", "plate", "-a", amplicon,
                 "--adapters-dir", self.adapters, "--device", "cuda"]
         log = io.StringIO()      # the CLI narrates stages, then the report
         counters = {"locate": L.LAUNCHES, "myers": M.LAUNCHES,
-                    "pileup": P.LAUNCHES}
+                    "pileup": P.LAUNCHES, "viterbi": H.LAUNCHES}
         saved = consensus.PILEUP_BACKEND
         consensus.PILEUP_BACKEND = backend
         try:
@@ -434,31 +489,40 @@ class Smoke:
             consensus.PILEUP_BACKEND = saved
         assert rc == 0, rc
         rep = json.loads(log.getvalue().strip().splitlines()[-1])
-        print(f"   tpu_orc_torch.cli run-all --device cuda (in process), "
-              f"pileup backend {backend}: {self.n_reads} reads, "
-              f"{wall:.1f} s wall")
+        print(f"   tpu_orc_torch.cli run-all -a {amplicon} --device cuda (in "
+              f"process), locate {L.LOCATE_IMPL}, pileup backend {backend}: "
+              f"{n_reads} reads, {wall:.1f} s wall")
         print(f"   launch counts during run_all: {counts}")
         stages = rep["metrics"]["stages"]
+        per_bin = ("03_sort/", "04_clean/", "05_rrna/")
         for st in stages:
-            if not st["stage"].startswith(("03_sort/", "04_clean/")):
+            if not st["stage"].startswith(per_bin):
                 print(f"   stage {st['stage']}: {st['wall_s']} s")
-        big_comb = f"SP27_{self.big[1] + 1:03d}_SP5_{self.big[0] + 1:03d}"
-        for kind in ("03_sort", "04_clean"):
+        big_comb = f"SP27_{big[1] + 1:03d}_SP5_{big[0] + 1:03d}"
+        for kind in per_bin:
             walls = {st["stage"].split("/")[1]: st["wall_s"]
-                     for st in stages if st["stage"].startswith(kind + "/")}
-            print(f"   stage {kind}: {len(walls)} bins, sum "
-                  f"{sum(walls.values()):.2f} s, enlarged bin "
-                  f"{walls.get(big_comb, 0.0):.2f} s, other bins max "
-                  f"{max(v for k, v in walls.items() if k != big_comb):.2f}"
-                  f" s (4 bin workers)")
+                     for st in stages if st["stage"].startswith(kind)}
+            if walls:
+                print(f"   stage {kind[:-1]}: {len(walls)} bins, sum "
+                      f"{sum(walls.values()):.2f} s, enlarged bin "
+                      f"{walls.get(big_comb, 0.0):.2f} s, other bins max "
+                      f"{max(v for k, v in walls.items() if k != big_comb):.2f}"
+                      f" s (4 bin workers)")
         return rep, counts
+
+    def coi_run(self, out, backend):
+        if not hasattr(self, "fq"):
+            self.fq, self.n_reads = self.plate()
+        return self.run_all(out, self.fq, self.n_reads, "COI", self.big,
+                            backend)
 
     def main_path(self):
         from tpu_orc_torch import synthetic
         out = os.path.join(WORK, "plate", "native")
-        rep, counts = self.run_all(out, "native")
+        rep, counts = self.coi_run(out, "native")
         self.launches({k: n for k, n in counts.items()
-                       if k.startswith(("locate_", "myers_"))})
+                       if k.startswith(("locate_", "myers_"))
+                       and not k.startswith("locate_ks_")})
         bins = rep["barcodes"]
         assert rep["demux"]["bins"] == 96, rep["demux"]
         worst = 1.0
@@ -484,7 +548,7 @@ class Smoke:
 
     def device_path(self):
         out = os.path.join(WORK, "plate", "device")
-        rep, counts = self.run_all(out, "device")
+        rep, counts = self.coi_run(out, "device")
         self.launches({k: n for k, n in counts.items()
                        if k.startswith("pileup_")})
         assert rep["demux"]["bins"] == 96, rep["demux"]
@@ -513,6 +577,169 @@ class Smoke:
         print(f"   {len(files)} files (every consensusfile.fasta and "
               f"primerless/ file) byte-identical to the native run's")
 
+    # -- phases 8 and 10: the rRNA plate ----------------------------------------
+    def rrna_plate(self):
+        """The synthetic rRNA plate: (FASTQ path, records, planted)."""
+        if not hasattr(self, "rfq"):
+            from tpu_orc_torch import synthetic
+            self.rbig = (3, 5)
+            recs, planted = synthetic.make_rrna_plate(24, seed=13,
+                                                      enlarged=self.rbig)
+            self.rfq = os.path.join(WORK, "rrna_plate.fastq")
+            with open(self.rfq, "w") as fh:
+                fh.write("".join(f"@{r.desc}\n{r.seq}\n+\n{r.qual}\n"
+                                 for r in recs))
+            self.rrecs, self.rplanted = recs, planted
+        return self.rfq, self.rrecs, self.rplanted
+
+    # -- phase 8 ---------------------------------------------------------
+    def locate_ks(self):
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.align import locate as L
+        _, recs, _ = self.rrna_plate()
+        rmasks, rlens = synthetic.read_masks(
+            [r.seq[:3584] for r in recs[:2048]], 3584)
+        rlens[::97] = 0                      # some empty reads
+        shapes = (("16,384 reads x L 512", *self.reads()),
+                  ("2,048 rRNA reads x L 3,584", rmasks, rlens))
+        for label, masks, lens in shapes:
+            rt = torch.from_numpy(np.ascontiguousarray(masks.T)).cuda()
+            ln = torch.from_numpy(lens).cuda()
+            for mode, bank in self.banks().items():
+                tabs = L.tables_for_bank(bank, mode, 3).tensors("cuda")
+                A = len(bank)
+                got = L.locate_cuda_ks(tabs, rt, ln, mode, A)
+                want = L.locate_plain_ks(tabs, rt, ln, mode, A)
+                wf = L.locate_cuda(tabs, rt, ln, mode, A)
+                torch.cuda.synchronize()
+                for other, what in ((want, "its plain version"),
+                                    (wf, "the wavefront kernel")):
+                    if not torch.equal(got, other):
+                        bad = [k for k in range(8)
+                               if not torch.equal(got[k], other[k])]
+                        raise AssertionError(f"KS locate {mode}, {label}: "
+                                             f"outputs {bad} differ from "
+                                             f"{what}")
+                ms = cuda_ms(lambda: L.locate_cuda_ks(tabs, rt, ln, mode, A))
+                wms = cuda_ms(lambda: L.locate_cuda(tabs, rt, ln, mode, A))
+                pms = cuda_ms(lambda: L.locate_plain_ks(tabs, rt, ln, mode,
+                                                        A), reps=3)
+                print(f"   KS locate {mode}, {label}, {A} adapters: "
+                      f"{int(got[4].sum())} valid hits, equal to plain and "
+                      f"to the wavefront kernel; KS kernel {ms:.3f} ms, "
+                      f"wavefront kernel {wms:.3f} ms, plain {pms:.3f} ms")
+                if rt.shape[0] == 3584:      # the rRNA path's reads
+                    cells = float(ln.sum()) * float(tabs[4][:A].sum())
+                    self.record(f"locate_ks_{mode}",
+                                "tpu_orc_torch/csrc/locate_ks.cu",
+                                "tpu_orc/align/pallas_locate.py:55",
+                                max_abs_err(got, want), ms, pms,
+                                nbytes(*tabs, rt, ln, got),
+                                OPS_PER_CELL["locate"] * cells)
+
+    # -- phase 9 ---------------------------------------------------------
+    def viterbi(self):
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch.rrna import hmm as H
+        from tpu_orc_torch.rrna.profiles import (_reverse_profile,
+                                                 default_euk_profiles)
+        rng = np.random.default_rng(9)
+        _, recs, _ = self.rrna_plate()
+        from tpu_orc_torch.io import encode
+        seqs = np.full((8, 3584), 4, np.uint8)
+        lens = np.zeros(8, np.int32)
+        for i, r in enumerate(recs[:8]):
+            c = encode.encode_codes(r.seq[:3584])
+            seqs[i, :len(c)] = c
+            lens[i] = len(c)
+        lens[5] = 0                          # an empty sequence
+        profs = default_euk_profiles()
+        K = 1800
+        rand = H.ProfileHMM("random_1800", rng.normal(0.0, 1.0, (K, 4)),
+                            rng.normal(-2.0, 1.0, (K, 7)))
+        put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        for p in (profs["18S"], _reverse_profile(profs["28S"]), rand):
+            args = (put(np.asarray(p.match_scores, np.float32)),
+                    put(np.asarray(p.t, np.float32)), put(H.dd_prefix(p.t)),
+                    put(seqs), put(lens))
+            got = H.viterbi_cuda(*args)
+            want = H.viterbi_plain(*args)
+            torch.cuda.synchronize()
+            bits = lambda x: x.view(torch.int32)
+            for name, g, w in zip(("score", "pos", "node"), got, want):
+                if not torch.equal(bits(g), bits(w)):
+                    raise AssertionError(f"viterbi {p.name}: {name} differs")
+            err = max(float((got[0] - want[0]).abs().max()),
+                      max_abs_err(got[1], want[1]),
+                      max_abs_err(got[2], want[2]))
+            ms = cuda_ms(lambda: H.viterbi_cuda(*args))
+            pms = cuda_ms(lambda: H.viterbi_plain(*args), reps=3)
+            print(f"   viterbi {p.name} (K {p.K}), 8 x 3,584: score bits, "
+                  f"position and node equal; best scores "
+                  f"{[round(float(x), 2) for x in got[0][:3]]}; kernel "
+                  f"{ms:.3f} ms, plain {pms:.3f} ms")
+            if p is profs["18S"]:            # the default path's profile
+                n_ops = OPS_PER_CELL["viterbi"] * float(lens.sum()) * p.K
+                self.record("viterbi", "tpu_orc_torch/csrc/viterbi.cu",
+                            "tpu_orc/rrna/hmm.py:169", err, ms, pms,
+                            nbytes(*args, *got), n_ops, FP32_OPS_PER_S)
+
+    # -- phase 10 --------------------------------------------------------
+    def rrna_path(self):
+        from tpu_orc_torch.align import locate as L
+        from tpu_orc_torch.pipeline.stages import (PipelineConfig,
+                                                   stage_demux,
+                                                   stage_reorient)
+        fq, recs, planted = self.rrna_plate()
+        out = os.path.join(WORK, "rrna", "ks")
+        L.LOCATE_IMPL = "ks"
+        try:
+            rep, counts = self.run_all(out, fq, len(recs), "RNA", self.rbig)
+        finally:
+            L.LOCATE_IMPL = "wf"
+        self.launches({f"locate_ks_{m}": counts[f"locate_ks_{m}"]
+                       for m in ("front", "back", "infix")})
+        self.launches({"viterbi": counts["viterbi_scan"]})
+        assert rep["demux"]["bins"] == 96, rep["demux"]
+        zero = [k for k in ("locate_ks_front", "locate_ks_back",
+                            "locate_ks_infix", "viterbi_scan",
+                            "myers_dense") if counts[k] == 0]
+        assert not zero, f"kernels not launched during run_all: {zero}"
+        wf = [k for k in ("locate_front", "locate_back", "locate_infix")
+              if counts[k]]
+        assert not wf, f"wavefront locate launched under ks: {wf}"
+        genes = os.path.join(out, "rRNA_genes")
+        for s5, s27 in planted:
+            for gene in ("18S", "28S"):
+                path = os.path.join(genes, f"{s27}_{s5}_{gene}.fa")
+                with open(path) as fh:
+                    n = fh.read().count(">")
+                assert n >= 1, f"no {gene} hit in bin {s27}_{s5}"
+        print(f"   96 bins, an 18S and a 28S hit in every bin: "
+              f"{rep['barcodes'][f'SP27_{self.rbig[1] + 1:03d}_SP5_{self.rbig[0] + 1:03d}']}"
+              f" in the enlarged bin")
+        # stages 01-02 with the wavefront locate: the same files
+        wout = os.path.join(WORK, "rrna", "wf")
+        import shutil
+        shutil.rmtree(wout, ignore_errors=True)
+        cfg = PipelineConfig(self.adapters, device="cuda")
+        stage_reorient(fq, wout, "plate", cfg)
+        stage_demux(os.path.join(wout, "pychopped", "plate_pass.fastq"),
+                    wout, "plate", cfg)
+        n = 0
+        for sub in ("pychopped", "demuxed"):
+            a, b = read_tree(os.path.join(out, sub)), \
+                read_tree(os.path.join(wout, sub))
+            assert sorted(a) == sorted(b), f"{sub}/ trees differ"
+            for rel in a:
+                assert a[rel] == b[rel], f"{sub}/{rel} differs"
+            n += len(a)
+        print(f"   stages 01-02 with the wavefront locate: {n} files "
+              f"byte-identical to the KS run's")
+
 
 def main() -> int:
     import torch
@@ -540,6 +767,9 @@ def main() -> int:
     if "6 run_all COI main path" not in s.failed:
         s.phase("7 run_all with the device consensus pileup",
                 s.device_path)
+    s.phase("8 KS locate kernel vs plain", s.locate_ks)
+    s.phase("9 Viterbi kernel vs plain", s.viterbi)
+    s.phase("10 run_all RNA plate with the KS locate", s.rrna_path)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"chip_smoke: failed phases: {s.failed}", file=sys.stderr)

@@ -8,7 +8,8 @@ the GPU host, which has none:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: tests/conftest.py configures JAX.) Tolerance: none,
-the outputs are integers. Inputs come from fixed seeds.
+the outputs are integers, and the Viterbi's float32 scores are compared
+bit for bit. Inputs come from fixed seeds.
 """
 import os
 import random
@@ -24,6 +25,7 @@ from tpu_orc_torch.align import pileup as P
 from tpu_orc_torch.demux import fused
 from tpu_orc_torch.demux.adapters import AdapterBank
 from tpu_orc_torch.io import encode
+from tpu_orc_torch.rrna import hmm as H
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +79,90 @@ def test_locate_tiles_dispatches_cuda_to_kernel(cuda):
     with pytest.raises(ValueError):   # non-contiguous reads
         L.locate_tiles(tabs.tensors(cuda), rt.t().contiguous().t(),
                        torch.from_numpy(lens).to(cuda), "front", 1)
+
+
+def _locate_case(rng, max_ref, min_overlap, mode):
+    """Tables of 7 adapters up to ``max_ref`` bp and 700 reads with
+    planted (partial) adapters, N codes and empty reads, on the card."""
+    refs = _seqs(rng, 7, 3, max_ref)
+    bank = AdapterBank([f"a{k}" for k in range(7)], refs, 0.2, "cpu")
+    tabs = L.BankTables(bank.masks, bank.lens, bank.k_table, bank.n_prefix,
+                        mode == "front", min_overlap)
+    reads = _seqs(rng, 700, 0, 300)
+    for k in range(0, 700, 5):
+        a = refs[k % 7]
+        reads[k] = reads[k][:50] + a[int(rng.integers(0, len(a))):]
+    for k in range(3, 700, 101):
+        reads[k] = ""
+    masks, lens = synthetic.read_masks(reads, 320)
+    rt = torch.from_numpy(np.ascontiguousarray(masks.T)).cuda()
+    return tabs.tensors("cuda"), rt, torch.from_numpy(lens).cuda(), lens
+
+
+@pytest.mark.parametrize("mode", ["front", "back", "infix"])
+def test_locate_ks_kernel_equals_plain(cuda, mode):
+    """The Kogge-Stone kernel: all 8 outputs equal locate_plain_ks, at 64
+    rows and at 128 (adapters up to 120 bp), min_overlap 0 and 3; one
+    counted launch per call."""
+    rng = np.random.default_rng(31)
+    for max_ref, mo in ((60, 0), (60, 3), (121, 0), (121, 3)):
+        tt, rt, ln, _ = _locate_case(rng, max_ref, mo, mode)
+        before = L.LAUNCHES.snapshot()[f"ks_{mode}"]
+        got = L.locate_tiles(tt, rt, ln, mode, 7, impl="ks")
+        want = L.locate_plain_ks(tt, rt, ln, mode, 7)
+        torch.cuda.synchronize()
+        assert L.LAUNCHES.snapshot()[f"ks_{mode}"] == before + 1
+        assert int(want[4].sum()) > 20
+        assert torch.equal(got, want), (max_ref, mo)
+
+
+def test_locate_ks_kernel_equals_wf_kernel(cuda):
+    """The two kernels agree in every mode at min_overlap 3; at 0 they
+    differ only in BACK, on the empty reads (the two Pallas kernels'
+    contracts)."""
+    rng = np.random.default_rng(32)
+    for mode in ("front", "back", "infix"):
+        for max_ref, mo in ((60, 3), (121, 3), (60, 0)):
+            tt, rt, ln, lens = _locate_case(rng, max_ref, mo, mode)
+            ks = L.locate_cuda_ks(tt, rt, ln, mode, 7)
+            wf = L.locate_cuda(tt, rt, ln, mode, 7)
+            torch.cuda.synchronize()
+            differ = (ks != wf).any(0).any(0).nonzero().flatten().cpu()
+            if mode == "back" and mo == 0:
+                np.testing.assert_array_equal(differ.numpy(),
+                                              np.flatnonzero(lens == 0))
+            else:
+                assert differ.numel() == 0, (mode, max_ref, mo)
+
+
+def test_viterbi_kernel_equals_plain(cuda):
+    """Score bits, end position and end node, for profiles of 40 to 4,096
+    nodes (every node-per-thread instantiation), N and pad codes, an
+    empty and a one-code sequence; one counted launch per call."""
+    rng = np.random.default_rng(33)
+    seqs = rng.integers(0, 5, (6, 1200)).astype(np.uint8)
+    lens = np.array([1200, 1000, 0, 1, 700, 1199], np.int32)
+    for K in (40, 300, 600, 1100, 2100, 4096):
+        cons = rng.integers(0, 4, K)
+        match = rng.normal(-1.0, 0.5, (K, 4))
+        match[np.arange(K), cons] = 1.2
+        t = rng.normal(-2.0, 0.7, (K, 7))
+        t[rng.random(K) < 0.05, 6] = -1e9
+        s = seqs.copy()
+        s[0, 100:100 + min(K, 1000)] = cons[:1000]
+        for b, n in enumerate(lens):
+            s[b, n:] = 4
+        put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        args = (put(match.astype(np.float32)), put(t.astype(np.float32)),
+                put(H.dd_prefix(t)), put(s), put(lens))
+        before = H.LAUNCHES.snapshot()["scan"]
+        got = H.viterbi_tiles(*args)
+        want = H.viterbi_plain(*args)
+        torch.cuda.synchronize()
+        assert H.LAUNCHES.snapshot()["scan"] == before + 1
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)), K
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 @pytest.mark.parametrize("mode", ["NW", "SHW", "HW"])

@@ -35,8 +35,8 @@ def banks(tmp_path_factory):
     d = synthetic.write_adapter_dir(str(tmp_path_factory.mktemp("adapters")))
     f5 = os.path.join(d, "M13_amplicon_indices_forward.fa")
     f27 = os.path.join(d, "M13_amplicon_indices_reverse_rc.fa")
-    return ((AdapterBank.from_fasta(f5, 0.1),
-             AdapterBank.from_fasta(f27, 0.1)),
+    return ((AdapterBank.from_fasta(f5, 0.1, "cpu"),
+             AdapterBank.from_fasta(f27, 0.1, "cpu")),
             (ref_adapters.AdapterBank.from_fasta(f5, 0.1),
              ref_adapters.AdapterBank.from_fasta(f27, 0.1)))
 

@@ -130,7 +130,8 @@ def test_locate_result_equals_oracle(mode):
                                     pad_value=0)
     for e in (0.0, 0.1, 0.2):
         res = L.locate_masks(bm, bl, make_k_table(e, bm, bl),
-                             make_n_prefix(bm), masks, lens, FLAGS[mode])
+                             make_n_prefix(bm), masks, lens, FLAGS[mode],
+                             device="cpu")
         for b, read in enumerate(reads):
             for a, r in enumerate(refs):
                 want = oracle_locate(r, read, e, FLAGS[mode], 3)
@@ -165,7 +166,8 @@ def test_locate_long_bank_equals_batched_locate(mode):
                                     encoder=encode.encode_read_masks,
                                     pad_value=0)
     want = batched_locate(bm, bl, kt, npf, masks, lens, int(FLAGS[mode]), 3)
-    got = L.locate_masks(bm, bl, kt, npf, masks, lens, FLAGS[mode])
+    got = L.locate_masks(bm, bl, kt, npf, masks, lens, FLAGS[mode],
+                         device="cpu")
     assert int(np.asarray(want.valid).sum()) > 20
     for field in want._fields:
         np.testing.assert_array_equal(getattr(got, field),
@@ -182,11 +184,11 @@ def test_bank_tables_equal_reference(tmp_path):
     cases = []
     for fa, mode in (("M13_amplicon_indices_forward.fa", "front"),
                      ("M13_amplicon_indices_reverse_rc.fa", "back")):
-        cases.append((AdapterBank.from_fasta(os.path.join(d, fa), 0.1),
+        cases.append((AdapterBank.from_fasta(os.path.join(d, fa), 0.1, "cpu"),
                       ref_adapters.AdapterBank.from_fasta(
                           os.path.join(d, fa), 0.1), mode))
     pf = os.path.join(d, "M13_seqs_for_pychopper.fa")
-    port_rb, _ = port_reorient.build_primer_bank(pf, 0.8)
+    port_rb, _ = port_reorient.build_primer_bank(pf, 0.8, "cpu")
     ref_rb, _ = ref_reorient.build_primer_bank(pf, 0.8)
     np.testing.assert_array_equal(port_rb.k_table, ref_rb.k_table)
     cases.append((port_rb, ref_rb, "infix"))
@@ -209,7 +211,8 @@ def test_locate_rejects_unported_flags():
                                     pad_value=0)
     with pytest.raises(NotImplementedError):
         L.locate_masks(bm, bl, make_k_table(0.1, bm, bl),
-                       make_n_prefix(bm), masks, lens, 2)  # SUFFIX
+                       make_n_prefix(bm), masks, lens, 2,  # SUFFIX
+                       device="cpu")
 
 
 def _vector_cases(kind):
@@ -231,7 +234,7 @@ COPIES = 17
 @pytest.mark.parametrize("case", _vector_cases("cases"))
 def test_cutadapt_vector_through_port_locate(case):
     bank = AdapterBank([n for n, _ in case["adapters"]],
-                       [s for _, s in case["adapters"]], case["e"])
+                       [s for _, s in case["adapters"]], case["e"], "cpu")
     enc = (encode.encode_read_masks_iupac if case.get("read_wildcards")
            else encode.encode_read_masks)
     recs = [Record(f"v{k}", f"v{k}", case["read"], None)
@@ -250,7 +253,8 @@ def test_cutadapt_linked_vector_through_port_locate(case):
     pair = PrimerPair("A", case["fwd"], case["rev"])
     recs = [Record(f"v{k}", f"v{k}", case["read"], None)
             for k in range(COPIES)]
-    trimmed, untrimmed = linked_trim(recs, [pair], e=case["e"])
+    trimmed, untrimmed = linked_trim(recs, [pair], e=case["e"],
+                                      device="cpu")
     exp = case["expect"]
     if exp["untrimmed"]:
         assert not trimmed and len(untrimmed) == COPIES, case["name"]

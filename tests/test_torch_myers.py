@@ -2,17 +2,23 @@
 
 The port's plain version of the Myers kernels must equal, bit for bit,
 the Pallas kernels run in interpret mode (dense grid and listed tile
-pairs), in NW/SHW/HW with the end position, and the native C++ oracle.
-Tolerance: none (integer equality). Inputs come from fixed numpy seeds.
+pairs), in NW/SHW/HW with the end position, and the native C++ oracle;
+``distances_with_pos`` must equal the XLA ``myers_tile`` that stage 05a
+calls in tpu_orc, at the rRNA callers' shapes. Tolerance: none (integer
+equality). Inputs come from fixed numpy seeds.
 """
 import numpy as np
 import pytest
 import torch
 
 from tpu_orc import native
+from tpu_orc.align import myers as ref_myers
 from tpu_orc.align import pallas_myers as ref_pm
 from tpu_orc.io import encode
+from tpu_orc.rrna.anchors import ANCHOR_18S_END, ANCHOR_28S_START
 from tpu_orc_torch.align import myers as M
+
+from test_rrna_accuracy import make_rdna_contig
 
 # One intra-op thread: PyTorch's OpenMP workers spin between ops and
 # starve the other pytest-xdist workers on a shared CPU.
@@ -71,7 +77,7 @@ def test_dense_equals_pallas(mode):
     tc, tl = _pack(txts)
     want_d, want_p = ref_pm.distances_pallas(pc, pl, tc, tl, mode, TI=8,
                                              TJ=128, interpret=True)
-    got_d, got_p = M.distances(pc, pl, tc, tl, mode)
+    got_d, got_p = M.distances(pc, pl, tc, tl, mode, device="cpu")
     np.testing.assert_array_equal(got_d, want_d)
     np.testing.assert_array_equal(got_p, want_p)
 
@@ -92,9 +98,10 @@ def test_pairs_equals_pallas(mode):
                                                    interpret=True)
     want_d, want_p = np.asarray(want_d), np.asarray(want_p)
     with pytest.raises(ValueError):   # the CUDA block is 8 x 32
-        M.distances_pairs(pc, pl, pc, pl, tiles, mode, TI=4, TJ=TJ)
+        M.distances_pairs(pc, pl, pc, pl, tiles, mode, TI=4, TJ=TJ,
+                          device="cpu")
     got_d, got_p = M.distances_pairs(pc, pl, pc, pl, tiles, mode, TI=TI,
-                                     TJ=TJ)
+                                     TJ=TJ, device="cpu")
     assert got_d.shape == (P, TJ)
     for ti, tj in tiles:
         rows = slice(ti * TI, (ti + 1) * TI)
@@ -112,7 +119,7 @@ def test_dense_equals_native(mode):
     txts = _related(rng, 3, 200, 0.05) + _seqs(rng, 3, 1, 230)
     pc, pl = _pack(pats)
     tc, tl = _pack(txts)
-    got, _ = M.distances(pc, pl, tc, tl, mode)
+    got, _ = M.distances(pc, pl, tc, tl, mode, device="cpu")
     for i in range(len(pats)):
         for j in range(len(txts)):
             want = native.edit_distance(pc[i, :pl[i]], tc[j, :tl[j]], mode)
@@ -133,8 +140,31 @@ def test_gated_block_equals_native_all_vs_all():
     hi = np.maximum.outer(lens[:n], lens[:n])
     gate = (np.arange(n)[:, None] < np.arange(n)[None, :]) & \
         (lo * 1.05 >= hi)
-    D = DeviceScorer()._gated_block(packed, lens, packed[:64], lens[:64],
+    D = DeviceScorer(device="cpu")._gated_block(packed, lens, packed[:64], lens[:64],
                                     gate, n, n, 64)
     want = native.all_vs_all(codes, band=1.05)
     gi, gj = np.nonzero(gate)
     np.testing.assert_array_equal(D[gi, gj], want[gi, gj])
+
+
+@pytest.mark.parametrize("patterns,mode", [
+    ("anchors", "HW"), ("anchors", "SHW"), ("anchors", "NW"),
+    ("exemplars", "HW")])
+def test_distances_with_pos_equals_xla(patterns, mode):
+    """Stage 05a's packing (pattern and text pad code 4): ~20 bp anchors,
+    one with an N, or ~1,800 bp exemplars, against ~3.5 kb rDNA texts on
+    both strands, a short text and an empty one."""
+    rng = np.random.default_rng(3)
+    rdna = [make_rdna_contig(rng, 0.05)[0] for _ in range(2)]
+    texts = rdna + [encode.revcomp(rdna[0]), rdna[0][:500], ""]
+    if patterns == "anchors":
+        pats = [ANCHOR_18S_END, ANCHOR_28S_START, "GCATCGATGNAGAACGCAGC"]
+    else:
+        pats = [rdna[0][:1800], rdna[1][100:1880]]
+    pc, pl = _pack(pats)
+    tc, tl = _pack(texts, -(-max(len(t) for t in texts) // 128) * 128)
+    want = ref_myers.distances_with_pos(pc, pl, tc, tl, mode)
+    got = M.distances_with_pos(pc, pl, tc, tl, mode, "cpu")
+    assert (want[0][:, 4] == pl).all() and (want[1][:, 4] == 0).all()
+    for g, w, what in zip(got, want, ("dist", "pos")):
+        np.testing.assert_array_equal(g, w, err_msg=what)

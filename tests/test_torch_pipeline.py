@@ -1,5 +1,5 @@
 """tpu_orc_torch ``run_all`` (COI) against tpu_orc's, and the port without
-JAX.
+JAX (``run_all -a RNA`` against tpu_orc's is in test_torch_rrna_run.py).
 
 The port's whole COI main path on the CPU (plain locate and Myers) and
 tpu_orc's run on one synthetic plate of 98 reads; the output trees must
@@ -9,7 +9,7 @@ subcommand is held against tpu_orc's stage the same way. Another test
 runs the port's ``run_all`` in a fresh interpreter where neither
 ``import jax`` nor ``import tpu_orc`` works (the GPU host has no JAX, and
 the port imports nothing of tpu_orc), with each consensus pileup
-backend.
+backend, and ``run_all -a RNA`` with the Kogge-Stone locate.
 """
 import json
 import os
@@ -74,10 +74,11 @@ def test_run_all_equals_reference(tmp_path):
 
 def test_run_all_refuses_unported_paths(tmp_path, monkeypatch):
     cfg = port_stages.PipelineConfig(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_stages.run_all("x.fastq", str(tmp_path), "d", "RNA", cfg)
-    # the device pileup backend is ported: run_all goes on to read its
-    # input
+    # the rRNA path and the device pileup backend are ported: run_all
+    # goes on to read its input
+    with pytest.raises(FileNotFoundError):
+        port_stages.run_all(str(tmp_path / "x.fastq"), str(tmp_path), "d",
+                            "RNA", cfg)
     monkeypatch.setattr(port_consensus, "PILEUP_BACKEND", "device")
     with pytest.raises(FileNotFoundError):
         port_stages.run_all(str(tmp_path / "x.fastq"), str(tmp_path), "d",
@@ -102,6 +103,36 @@ def test_cli_demux_equals_reference_stage(tmp_path, capsys):
     assert got["final_bins"] == want["final_bins"]
     assert len(got["final_bins"]) == 6
     assert_same_tree(str(tmp_path / "port"), str(tmp_path / "ref"))
+
+
+def test_entry_points_default_to_cuda():
+    """Every public entry point of the port that takes a device runs on
+    the card unless the caller names the CPU; the sorter's default scorer
+    takes the sorter's device."""
+    import inspect
+
+    from tpu_orc_torch.align import locate, myers
+    from tpu_orc_torch.cluster import engine, scoring
+    from tpu_orc_torch.demux import adapters, primer_clean, reorient
+    from tpu_orc_torch.rrna import anchors, extract, hmm, profiles
+
+    def default(fn, name="device"):
+        return inspect.signature(fn).parameters[name].default
+
+    fns = [adapters.AdapterBank, adapters.AdapterBank.from_fasta,
+           adapters.AdapterBank.from_pairs, reorient.ReorientConfig,
+           reorient.build_primer_bank, primer_clean.linked_trim,
+           primer_clean.unlinked_round2, primer_clean.clean_primers,
+           scoring.DeviceScorer, engine.AmpliconSorter, locate.locate_masks,
+           myers.distances, myers.distances_pairs, myers.distances_with_pos,
+           hmm.viterbi_scan, hmm.profile_from_seqs, profiles.find_rrna_default,
+           anchors.find_rrna_by_anchors, extract.find_gene_exemplar,
+           extract.find_gene_profile, extract.extract_rrna,
+           port_stages.PipelineConfig]
+    assert {f.__qualname__: default(f) for f in fns} == \
+        {f.__qualname__: "cuda" for f in fns}
+    assert engine.AmpliconSorter().scorer.device == "cuda"
+    assert engine.AmpliconSorter(device="cpu").scorer.device == "cpu"
 
 
 def test_cli_refuses_absent_cuda(tmp_path, monkeypatch):
@@ -139,10 +170,21 @@ for backend in ("native", "device"):
     cons[backend] = {b: open(os.path.join(sdir, b, "consensusfile.fasta")
                              ).read() for b in sorted(os.listdir(sdir))
                      if os.path.isdir(os.path.join(sdir, b))}
+# the rRNA path with the Kogge-Stone locate
+from tpu_orc_torch.align import locate
+locate.LOCATE_IMPL = "ks"
+rrecs, _ = synthetic.make_rrna_plate(8, n5=1, n27=2, seed=3,
+                                     error_rate=0.03)
+rfq = os.path.join(tempfile.mkdtemp(), "rrna.fastq")
+write_records(rfq, rrecs, fmt="fastq")
+with contextlib.redirect_stdout(io.StringIO()):
+    rrep = run_all(rfq, tempfile.mkdtemp(), "r", "RNA",
+                   PipelineConfig(d, device="cpu"))
 print(json.dumps({"bins": rep["demux"]["bins"],
                   "groups": sum(b["species_groups"]
                                 for b in rep["barcodes"].values()),
                   "same": cons["native"] == cons["device"],
+                  "rrna": [b.get("rrna") for b in rrep["barcodes"].values()],
                   "loaded": sorted(m for m in sys.modules
                                    if m.split(".")[0] in ("jax", "tpu_orc")
                                    and sys.modules[m] is not None)}))
@@ -152,9 +194,10 @@ print(json.dumps({"bins": rep["demux"]["bins"],
 def test_port_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", JAX_FREE], env=env,
-                         capture_output=True, text=True, timeout=300,
+                         capture_output=True, text=True, timeout=600,
                          cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
     assert res["bins"] == 4 and res["groups"] >= 3 and res["same"]
+    assert {"18S": 1, "28S": 1} in res["rrna"]

@@ -91,7 +91,8 @@ def test_reorient_file_equals_reference(tmp_path, adapters, raw_reads):
     pf = os.path.join(adapters, "M13_seqs_for_pychopper.fa")
     pc = os.path.join(adapters, "M13_config_for_pychopper.txt")
     got = port_reorient.reorient_file(fq, pf, pc, str(tmp_path / "port"),
-                                      "x")
+                                      "x", port_reorient.ReorientConfig(
+                                          device="cpu"))
     want = ref_reorient.reorient_file(fq, pf, pc, str(tmp_path / "ref"),
                                       "x")
     assert got.stats == want.stats
@@ -108,8 +109,8 @@ def test_dual_round_demux_stream_equals_reference(tmp_path, adapters,
     f5 = os.path.join(adapters, "M13_amplicon_indices_forward.fa")
     f27 = os.path.join(adapters, "M13_amplicon_indices_reverse_rc.fa")
     got = port_demux.dual_round_demux_stream(
-        iter(recs), AdapterBank.from_fasta(f5, 0.1),
-        AdapterBank.from_fasta(f27, 0.1), "ds", str(tmp_path / "port"),
+        iter(recs), AdapterBank.from_fasta(f5, 0.1, "cpu"),
+        AdapterBank.from_fasta(f27, 0.1, "cpu"), "ds", str(tmp_path / "port"),
         chunk_size=16)
     want = ref_demux.dual_round_demux_stream(
         iter(recs), ref_adapters.AdapterBank.from_fasta(f5, 0.1),
@@ -146,7 +147,7 @@ def test_clean_primers_equals_reference(tmp_path, adapters):
     rna = os.path.join(adapters, "RNA_primers.fa")
     got, grep = port_clean.clean_primers(contigs, coi, rna,
                                          outdir=str(tmp_path / "port"),
-                                         name="bc")
+                                         name="bc", device="cpu")
     want, wrep = ref_clean.clean_primers(contigs, coi, rna,
                                          outdir=str(tmp_path / "ref"),
                                          name="bc")

@@ -10,17 +10,22 @@ first use (``_build.py``), with a plain PyTorch version beside it that
 the CPU tests hold against ``tpu_orc``.
 
     io/        FASTQ/FASTA reader and writer, base encoding
-    align/     locate, Myers and path-bits pileup: kernel wrappers and
-               plain versions; the flag algebra (spec)
+    align/     locate (wavefront and Kogge-Stone), Myers and path-bits
+               pileup: kernel wrappers and plain versions; the flag
+               algebra (spec)
     native/    the C++ oracle (host scorer, consensus traceback)
     demux/     reorient, dual-round demux (fused on CUDA), primer clean,
                cutadapt-schema reports
     cluster/   scoring (Myers backends), sorter engine, consensus,
                union-find, writers
-    pipeline/  stage graph of the COI main path (run_all), qc, summary
+    rrna/      stage 05a: the profile-HMM Viterbi (kernel wrapper and
+               plain version), HMMER3 and .cm parsing, 18S/28S finders
+    pipeline/  stage graph of the COI and rRNA paths (run_all), qc,
+               summary
     analysis/  the stage-00 figures
     utils/     run metrics
-    synthetic  seeded synthetic banks and plate reads (tests, smoke)
+    synthetic  seeded synthetic banks and COI and rRNA plate reads (tests,
+               smoke)
 """
 
 __version__ = "0.1.0"

@@ -1,17 +1,25 @@
-"""Cutadapt-equivalent locate over [reads x adapters]: CUDA kernel and its
-plain PyTorch version.
+"""Cutadapt-equivalent locate over [reads x adapters]: two CUDA kernels and
+their plain PyTorch versions.
 
 Port of ``tpu_orc/align/pallas_locate.py``: ``BankTables`` (:461),
-``tables_for_bank`` (:523), ``_mode_of`` (:545), ``locate_dispatch``
-(:555), ``locate_collect`` (:589) and ``locate_pallas`` (:602, here
-``locate_masks``). ``locate_tiles`` takes the place of the Pallas launch
-(:394) and dispatches by the device of its tensors:
+``tables_for_bank`` (:523), ``_mode_of`` (:545), ``LOCATE_IMPL`` (:388),
+``locate_dispatch`` (:555), ``locate_collect`` (:589) and
+``locate_pallas`` (:602, here ``locate_masks``). ``locate_tiles`` takes
+the place of the Pallas launch (:394); ``impl`` (default
+:data:`LOCATE_IMPL`, from ``TPU_ORC_LOCATE_IMPL``) picks the kernel it
+replaces, and the device of its tensors picks the version:
 
-* a CPU tensor goes to :func:`locate_plain`, the anti-diagonal wavefront
-  recurrence of ``_kernel_wf`` written as torch ops over [A, R, B]
-  planes;
-* a CUDA tensor goes to :func:`locate_cuda`, the hand-written kernel in
-  ``csrc/locate.cu``, or the wrapper raises.
+* 'wf', Pallas ``_kernel_wf`` (:205): a CPU tensor goes to
+  :func:`locate_plain`, the anti-diagonal wavefront as torch ops over
+  [A, R, B] planes; a CUDA tensor to :func:`locate_cuda`, the
+  hand-written kernel in ``csrc/locate.cu``;
+* 'ks', Pallas ``_kernel`` (:55): a CPU tensor goes to
+  :func:`locate_plain_ks`, the per-column Kogge-Stone scan as torch ops;
+  a CUDA tensor to :func:`locate_cuda_ks` (``csrc/locate_ks.cu``).
+
+A CUDA tensor always reaches a kernel, or the wrapper raises. The two
+contracts differ in one place: BACK with ``min_overlap`` 0 on an empty
+read (:func:`locate_plain_ks`).
 
 Supported modes are FRONT, BACK and INFIX (the demux, primer-clean and
 reorient paths). Other flag sets belong to the XLA ``batched_locate``,
@@ -21,6 +29,7 @@ be up to ``MAX_ADAPTER`` bp (the Pallas tables stop at 62 bp).
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -33,11 +42,21 @@ from .tables import LocateResult
 INFIX = Flag.START_WITHIN_SEQ2 | Flag.STOP_WITHIN_SEQ2
 
 BIG = 1 << 28
-MAX_ADAPTER = 127          # DP rows R <= 128 in csrc/locate.cu
+MAX_ADAPTER = 127          # DP rows R <= 128 in both kernels
 MODES = {"front": 0, "back": 1, "infix": 2}
+#: (kernel source, C entry point) of each implementation
+SOURCES = {"wf": ("locate", "orc_locate"), "ks": ("locate_ks", "orc_locate_ks")}
 
-#: kernel launches per mode (csrc/locate.cu), counted by locate_cuda
-LAUNCHES = _build.LaunchCounter(tuple(MODES))
+#: locate implementation: 'wf' (the anti-diagonal wavefront of
+#: ``_kernel_wf``, default) or 'ks' (the per-column Kogge-Stone scan of
+#: ``_kernel``), from ``TPU_ORC_LOCATE_IMPL`` as in ``pallas_locate.py``
+#: :387-388; read at each call, so tests may set the attribute
+LOCATE_IMPL = os.environ.get("TPU_ORC_LOCATE_IMPL", "wf")
+
+#: kernel launches per mode: 'front'/'back'/'infix' of csrc/locate.cu,
+#: 'ks_front'/'ks_back'/'ks_infix' of csrc/locate_ks.cu
+LAUNCHES = _build.LaunchCounter(tuple(MODES)
+                                + tuple(f"ks_{m}" for m in MODES))
 
 
 def rows_for(M: int) -> int:
@@ -297,21 +316,152 @@ def locate_plain(tables, reads_T: torch.Tensor, lens: torch.Tensor,
                         nacc]).to(i32)
 
 
+def locate_plain_ks(tables, reads_T: torch.Tensor, lens: torch.Tensor,
+                    mode: str, A: int) -> torch.Tensor:
+    """``_kernel``'s per-column Kogge-Stone recurrence as torch ops.
+
+    Same arguments and [8, A, B] output as :func:`locate_plain`. Column
+    j of all R rows is one [A, R, B] plane: the diagonal and horizontal
+    candidates, the row-0 reset, then the vertical chain as an inclusive
+    (min,+) scan along rows in log2(R) steps on the key
+    ``((cand - row + R) << log2(R)) | (R - 1 - row)``, whose low field
+    makes ties go to the larger row (the sequential DP keeps a local
+    candidate over an equal-cost vertical one). The key names the row a
+    cell's value came from, so matches and origin are gathered from that
+    row after the scan instead of travelling with it. Acceptance is
+    gated on j <= len, so the columns stop at the longest read. BACK's
+    final-column snapshot starts as column 0, row 0 included (``_kernel``
+    :74-76): for an empty read with ``min_overlap`` 0 that row is a
+    candidate, where the wavefront of :func:`locate_plain` never
+    evaluates it.
+    """
+    ref, kbyrs, kfin, kconst, mrow = tables
+    dev = reads_T.device
+    i32 = torch.int32
+    L, B = reads_T.shape
+    R = ref.shape[1]
+    sh = R.bit_length() - 1                 # log2(R): R is 64 or 128
+    front = mode == "front"
+    back = mode == "back"
+    shape = (A, R, B)
+    rows = torch.arange(R, device=dev, dtype=i32).view(1, R, 1)
+    # key = (cand << sh) + kbase = ((cand - row + R) << sh) | (R - 1 - row)
+    kbase = ((R - rows) << sh) | ((R - 1) - rows)
+    refm = ref[:A, 1:].to(i32).view(A, R - 1, 1)
+    mlen = mrow[:A].to(torch.int64)
+    lens_ = lens.to(i32).view(1, B)
+    # column j = 0: FRONT skips an adapter prefix for free (origin -i),
+    # BACK/INFIX pay one deletion per adapter character
+    zero = torch.zeros(shape, dtype=i32, device=dev)
+    if front:
+        cost, org = zero, (-rows).expand(shape)
+    else:
+        cost, org = rows.expand(shape), zero
+    mat = zero
+    if back:
+        sc, sm, so = cost, mat, org
+    at_m = mlen.view(A, 1, 1).expand(A, 1, B)
+    kb = kbyrs[:A].to(torch.int64)
+    kc = kconst[:A].to(i32).view(A, 1)
+    z1 = torch.zeros((A, 1, B), dtype=i32, device=dev)
+
+    def row_m(j):
+        cm = cost.gather(1, at_m).squeeze(1)
+        mm = mat.gather(1, at_m).squeeze(1)
+        om = org.gather(1, at_m).squeeze(1)
+        if front:   # threshold keyed on the candidate's refstart
+            rs = torch.clamp(-om, 0, R - 1).to(torch.int64)
+            kmax = kb.gather(1, rs).to(i32)
+        else:
+            kmax = kc
+        return (cm <= kmax) & (j <= lens_), mm, cm, om
+
+    ok, mm, cm, om = row_m(0)
+    out_v = ok.to(i32)
+    out_m = torch.where(ok, mm, -1)
+    out_c = torch.where(ok, cm, BIG)
+    out_o = torch.where(ok, om, 0)
+    out_q = torch.zeros((A, B), dtype=i32, device=dev)
+    out_r = mlen.to(i32).view(A, 1).expand(A, B).clone()
+    pok = ok.to(i32)
+    nloc, nacc = pok, pok
+    for j in range(1, min(L, int(lens.max())) + 1 if B else 1):
+        # rows 1..R-1: diagonal (row i-1 of column j-1, +1 on a
+        # mismatch) against horizontal (row i of column j-1, +1); the
+        # diagonal wins ties
+        eq = ((refm & reads_T[j - 1].to(i32).view(1, 1, B)) != 0).to(i32)
+        dc = cost[:, :-1] + 1 - eq
+        hc = cost[:, 1:] + 1
+        use_h = hc < dc
+        # row 0: START_WITHIN_SEQ2 reset (cost 0, matches 0, origin j)
+        cc = torch.cat([z1, torch.minimum(hc, dc)], 1)
+        cm_ = torch.cat([z1, torch.where(use_h, mat[:, 1:],
+                                         mat[:, :-1] + eq)], 1)
+        co = torch.cat([z1 + j, torch.where(use_h, org[:, 1:],
+                                            org[:, :-1])], 1)
+        key = (cc << sh) + kbase
+        d = 1
+        while d < R:
+            key = torch.cat([key[:, :d],
+                             torch.minimum(key[:, d:], key[:, :-d])], 1)
+            d *= 2
+        src = ((R - 1) - (key & (R - 1))).to(torch.int64)
+        cost = (key >> sh) - R + rows
+        mat, org = cm_.gather(1, src), co.gather(1, src)
+        ok, mm, cm, om = row_m(j)
+        better = ok & ((mm > out_m) | ((mm == out_m) & (cm < out_c)))
+        out_v = torch.where(better, 1, out_v)
+        out_m = torch.where(better, mm, out_m)
+        out_c = torch.where(better, cm, out_c)
+        out_o = torch.where(better, om, out_o)
+        out_q = torch.where(better, j, out_q)
+        oki = ok.to(i32)
+        nloc = nloc + oki * (1 - pok)
+        nacc = nacc + oki
+        pok = oki
+        if back:
+            at_end = (lens_ == j).view(1, 1, B)
+            sc = torch.where(at_end, cost, sc)
+            sm = torch.where(at_end, mat, sm)
+            so = torch.where(at_end, org, so)
+
+    if back:
+        # STOP_WITHIN_SEQ1: every row of the snapshot column is a
+        # candidate; max matches, then min cost, then min row
+        okf = sc <= kfin[:A].to(i32).view(A, R, 1)
+        key = torch.where(okf, ((R - sm) << 16)
+                          + (torch.clamp(sc, max=255) << 8) + rows, BIG)
+        kbest = key.min(dim=1).values
+        fm = R - (kbest >> 16)
+        fc = (kbest >> 8) & 255
+        frow = kbest & 255
+        fo = so.gather(1, torch.clamp(frow, 0, R - 1).to(torch.int64)
+                       .unsqueeze(1)).squeeze(1)
+        better = (kbest < BIG) & ((fm > out_m)
+                                  | ((fm == out_m) & (fc < out_c)))
+        out_v = torch.where(better, 1, out_v)
+        out_m = torch.where(better, fm, out_m)
+        out_c = torch.where(better, fc, out_c)
+        out_o = torch.where(better, fo, out_o)
+        out_q = torch.where(better, lens_.expand(A, B), out_q)
+        out_r = torch.where(better, frow, out_r)
+    return torch.stack([out_m, out_c, out_o, out_q, out_v, out_r, nloc,
+                        nacc]).to(i32)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _lib():
+def _lib(impl: str = "wf"):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return _build.load("locate", "orc_locate",
-                       [vp] * 7 + [ci] * 4 + [vp, vp])
+    name, symbol = SOURCES[impl]
+    return getattr(_build.load(name, symbol, [vp] * 7 + [ci] * 4 + [vp, vp]),
+                   symbol)
 
 
-def locate_cuda(tables, reads_T: torch.Tensor, lens: torch.Tensor,
-                mode: str, A: int) -> torch.Tensor:
-    """Launch ``csrc/locate.cu`` on the current stream; same contract
-    and output as :func:`locate_plain`. Inputs are checked by
-    :func:`locate_tiles`."""
+def _launch(impl: str, tables, reads_T: torch.Tensor, lens: torch.Tensor,
+            mode: str, A: int) -> torch.Tensor:
     ref, kbyrs, kfin, kconst, mrow = tables
     L, B = reads_T.shape
     out = torch.empty((8, A, B), dtype=torch.int32, device=reads_T.device)
@@ -319,23 +469,48 @@ def locate_cuda(tables, reads_T: torch.Tensor, lens: torch.Tensor,
         return out                            # nothing to launch
     with torch.cuda.device(reads_T.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().orc_locate(
+        err = _lib(impl)(
             reads_T.data_ptr(), lens.data_ptr(), ref.data_ptr(),
             kbyrs.data_ptr(), kfin.data_ptr(), kconst.data_ptr(),
             mrow.data_ptr(), ref.shape[1], B, A, MODES[mode],
             out.data_ptr(), stream)
-    _build.check(err, f"locate kernel ({mode})")
-    LAUNCHES.add(mode)
+    _build.check(err, f"locate {impl} kernel ({mode})")
+    LAUNCHES.add(mode if impl == "wf" else f"ks_{mode}")
     return out
 
 
+def locate_cuda(tables, reads_T: torch.Tensor, lens: torch.Tensor,
+                mode: str, A: int) -> torch.Tensor:
+    """Launch ``csrc/locate.cu`` on the current stream; same contract
+    and output as :func:`locate_plain`. Inputs are checked by
+    :func:`locate_tiles`."""
+    return _launch("wf", tables, reads_T, lens, mode, A)
+
+
+def locate_cuda_ks(tables, reads_T: torch.Tensor, lens: torch.Tensor,
+                   mode: str, A: int) -> torch.Tensor:
+    """Launch ``csrc/locate_ks.cu`` on the current stream; same contract
+    and output as :func:`locate_plain_ks`. Inputs are checked by
+    :func:`locate_tiles`."""
+    return _launch("ks", tables, reads_T, lens, mode, A)
+
+
+#: (plain version, kernel) of each implementation
+IMPLS = {"wf": (locate_plain, locate_cuda),
+         "ks": (locate_plain_ks, locate_cuda_ks)}
+
+
 def locate_tiles(tables, reads_T: torch.Tensor, lens: torch.Tensor,
-                 mode: str, A: int) -> torch.Tensor:
+                 mode: str, A: int, impl: str | None = None) -> torch.Tensor:
     """Locate every bank adapter in every read; [8, A, B] int32.
 
     tables = (ref, kbyrs, kfin, kconst, mrow) int32; reads_T [L, B]
-    uint8 read match masks; lens [B] int32 with 0 <= lens <= L. A CPU
-    tensor goes to :func:`locate_plain`; a CUDA tensor to the kernel."""
+    uint8 read match masks; lens [B] int32 with 0 <= lens <= L. impl:
+    'wf' | 'ks' (None: :data:`LOCATE_IMPL`). A CPU tensor goes to the
+    implementation's plain version; a CUDA tensor to its kernel."""
+    impl = LOCATE_IMPL if impl is None else impl
+    if impl not in IMPLS:
+        raise ValueError(f"locate impl {impl!r} not in {tuple(IMPLS)}")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
     ref, kbyrs, kfin, kconst, mrow = tables
@@ -355,13 +530,14 @@ def locate_tiles(tables, reads_T: torch.Tensor, lens: torch.Tensor,
         raise ValueError("locate inputs lie on more than one device")
     if any(t.dtype != torch.int32 for t in ts[2:]):
         raise ValueError("bank tables must be int32")
+    plain, kernel = IMPLS[impl]
     if reads_T.device.type == "cpu":
-        return locate_plain(tables, reads_T, lens, mode, A)
+        return plain(tables, reads_T, lens, mode, A)
     if reads_T.device.type != "cuda":
         raise ValueError(f"no locate kernel for device {reads_T.device}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("locate kernel inputs must be contiguous")
-    return locate_cuda(tables, reads_T, lens, mode, A)
+    return kernel(tables, reads_T, lens, mode, A)
 
 
 def locate_dispatch(tabs: BankTables, read_masks: np.ndarray,
@@ -399,7 +575,7 @@ def locate_masks(bank_masks: np.ndarray, bank_lens: np.ndarray,
                  k_table: np.ndarray, n_prefix: np.ndarray,
                  read_masks: np.ndarray, read_lens: np.ndarray,
                  flags: int, min_overlap: int = DEFAULT_MIN_OVERLAP,
-                 device="cpu") -> LocateResult:
+                 device="cuda") -> LocateResult:
     """Host wrapper producing LocateResult fields as numpy arrays
     [B, A] (``locate_pallas``'s contract). FRONT/BACK/INFIX only."""
     mode = _mode_of(flags)

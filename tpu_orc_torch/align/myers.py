@@ -267,7 +267,7 @@ def _upload(patterns_codes, m_lens, texts_codes, n_lens, P: int, T: int,
 
 def distances(patterns_codes: np.ndarray, m_lens: np.ndarray,
               texts_codes: np.ndarray, n_lens: np.ndarray,
-              mode: str = "NW", device="cpu", fetch_pos: bool = True):
+              mode: str = "NW", device="cuda", fetch_pos: bool = True):
     """Host wrapper mirroring ``distances_pallas``: codes in, numpy
     ([P, T] distances, [P, T] positions or None) out."""
     P0, T0 = patterns_codes.shape[0], texts_codes.shape[0]
@@ -280,7 +280,7 @@ def distances_pairs(patterns_codes: np.ndarray, m_lens: np.ndarray,
                     texts_codes: np.ndarray, n_lens: np.ndarray,
                     tile_pairs: np.ndarray, mode: str = "NW",
                     TI: int | None = None, TJ: int | None = None,
-                    device="cpu", fetch_pos: bool = True):
+                    device="cuda", fetch_pos: bool = True):
     """Host wrapper for the listed-tile entry point. ``tile_pairs`` is
     [G, 2] int32 of (pattern-tile, text-tile) indices at the (TI, TJ)
     granularity of :func:`tile_shape`. Returns numpy (dist, pos) padded
@@ -295,3 +295,17 @@ def distances_pairs(patterns_codes: np.ndarray, m_lens: np.ndarray,
     d, p = myers_tiles(*up, mode, pairs[:, 0].contiguous(),
                        pairs[:, 1].contiguous(), TI, TJ)
     return d.cpu().numpy(), (p.cpu().numpy() if fetch_pos else None)
+
+
+def distances_with_pos(patterns_codes: np.ndarray, m_lens: np.ndarray,
+                       texts_codes: np.ndarray, n_lens: np.ndarray,
+                       mode: str = "NW", device="cuda"):
+    """``tpu_orc/align/myers.py::distances_with_pos`` (:147, the XLA
+    ``myers_tile``) on the dense entry point: codes in, ([P, T]
+    distances, [P, T] text end positions) out. Pattern positions at or
+    past ``m_lens`` go to the pad channel; text code 4 (N) matches N; a
+    column counts only while j <= n_len. For NW the position is the text
+    length; for SHW/HW the earliest 1-based column at the minimum, and 0
+    (with distance m) when no column beats column 0."""
+    return distances(patterns_codes, m_lens, texts_codes, n_lens, mode,
+                     device)

@@ -1,17 +1,25 @@
-"""tpu_orc_torch command line: the COI main path on one torch device.
+"""tpu_orc_torch command line: the COI and rRNA paths on one torch device.
 
-    python -m tpu_orc_torch.cli run-all  <fastq> -o OUT -n DATASET -a COI
-                                         --adapters-dir DIR [--device cuda]
+    python -m tpu_orc_torch.cli run-all  <fastq> -o OUT -n DATASET
+                                         -a {COI,RNA} --adapters-dir DIR
+                                         [--rrna-hmm F | --rrna-cm F]
+                                         [--exemplars-18s F]
+                                         [--exemplars-28s F] [--device cuda]
     python -m tpu_orc_torch.cli reorient <fastq> -o OUT -n NAME --adapters-dir DIR
     python -m tpu_orc_torch.cli demux    <fastq> -o OUT -n DATASET --adapters-dir DIR
     python -m tpu_orc_torch.cli sort     <bin.fastq> -o OUT -b BARCODE
     python -m tpu_orc_torch.cli clean    <consensus.fasta> -o OUT -b BARCODE
                                          -a {COI,RNA} --adapters-dir DIR
+    python -m tpu_orc_torch.cli rrna     <cleaned.fasta> -o OUT -b BARCODE
+                                         [--hmm F | --cm F]
+                                         [--exemplars-18s F]
+                                         [--exemplars-28s F]
 
 Port of the path's subcommands of ``tpu_orc/cli.py``. ``--device``
 (default ``cuda``) names the torch device of the kernels; a CUDA device
 that is not there is an error, never a CPU fallback. ``--device cpu``
-runs the kernels' plain versions.
+runs the kernels' plain versions. ``TPU_ORC_LOCATE_IMPL=ks`` runs every
+locate through the Kogge-Stone kernel (``align/locate.py``).
 """
 from __future__ import annotations
 
@@ -76,12 +84,29 @@ def main(argv=None):
                     help="IUPAC codes in contigs match their base set "
                          "(use with -amb consensus)")
 
+    sp = add("rrna", adapters=False)
+    sp.add_argument("-b", "--barcode", required=True)
+    sp.add_argument("--exemplars-18s")
+    sp.add_argument("--exemplars-28s")
+    sp.add_argument("--hmm", help="HMMER3 .hmm with 18S/28S models")
+    sp.add_argument("--cm", help="Infernal .cm (Rfam SSU/LSU models; "
+                                 "pybarrnap variant)")
+
     sp = add("run-all")
     sp.add_argument("-n", "--dataset", required=True)
-    sp.add_argument("-a", "--amplicon", choices=["COI"], required=True,
-                    help="COI only: stage 05a (rRNA) is not ported")
+    sp.add_argument("-a", "--amplicon", choices=["COI", "RNA"],
+                    required=True)
+    sp.add_argument("--rrna-hmm", default=None,
+                    help="HMMER3 .hmm (e.g. barrnap euk.hmm) for stage 05; "
+                         "default = universal junction anchors")
+    sp.add_argument("--rrna-cm", default=None,
+                    help="Infernal .cm (e.g. Rfam 14.10 SSU/LSU) for "
+                         "stage 05, scored via the CM's embedded p7 "
+                         "filter (rrna/cm.py)")
+    sp.add_argument("--exemplars-18s", default=None)
+    sp.add_argument("--exemplars-28s", default=None)
     sp.add_argument("--bin-workers", type=int, default=4,
-                    help="concurrent barcode bins in stages 03-04")
+                    help="concurrent barcode bins in stages 03-05")
 
     args = p.parse_args(argv)
     from .pipeline.stages import PipelineConfig
@@ -120,9 +145,41 @@ def main(argv=None):
                                  args.amplicon, cfg)
         print(json.dumps({"total": rep.total, "trimmed": rep.trimmed,
                           "failsafe_dropped": rep.failsafe_dropped}))
+    elif args.cmd == "rrna":
+        from .io.fastq import read_fasta, read_records
+        from .rrna.extract import extract_rrna
+        from .rrna.hmm import parse_hmmer3
+        kw = {}
+        if args.exemplars_18s:
+            kw["exemplars_18s"] = [r.seq for r in
+                                   read_fasta(args.exemplars_18s)]
+        if args.exemplars_28s:
+            kw["exemplars_28s"] = [r.seq for r in
+                                   read_fasta(args.exemplars_28s)]
+        if args.cm:
+            from .rrna.cm import parse_cm, profiles_by_gene
+            bygene = profiles_by_gene(parse_cm(args.cm))
+            if "18S" in bygene:
+                kw["profile_18s"] = bygene["18S"]
+            if "28S" in bygene:
+                kw["profile_28s"] = bygene["28S"]
+        elif args.hmm:
+            models = {m.name: m for m in parse_hmmer3(args.hmm)}
+            for name, m in models.items():
+                if "18" in name:
+                    kw["profile_18s"] = m
+                if "28" in name:
+                    kw["profile_28s"] = m
+        hits = extract_rrna(list(read_records(args.input)), args.outdir,
+                            args.barcode, device=device, **kw)
+        print(json.dumps({g: len(h) for g, h in hits.items()}))
     elif args.cmd == "run-all":
         from .pipeline.stages import run_all
         cfg = PipelineConfig(adapters, device=device,
+                             rrna_hmm=args.rrna_hmm,
+                             rrna_cm=args.rrna_cm,
+                             rrna_exemplars_18s=args.exemplars_18s,
+                             rrna_exemplars_28s=args.exemplars_28s,
                              bin_workers=args.bin_workers)
         rep = run_all(args.input, args.outdir, args.dataset, args.amplicon,
                       cfg=cfg)

@@ -110,8 +110,9 @@ class AmpliconSorter:
                  scorer: Optional[DeviceScorer] = None, device="cuda"):
         self.cfg = config
         self.rng = np.random.default_rng(config.seed)
-        self.scorer = scorer or DeviceScorer(tile=config.tile)
-        # torch device of the consensus pileup's device backend
+        # the default scorer and the consensus pileup's device backend
+        # run on one torch device
+        self.scorer = scorer or DeviceScorer(tile=config.tile, device=device)
         self.device = device
 
     # ------------------------------------------------------------------

@@ -75,7 +75,7 @@ class DeviceScorer:
     """
 
     def __init__(self, tile: int = 256, backend: str = "kernel",
-                 device: str = "cpu"):
+                 device: str = "cuda"):
         if backend not in ("kernel", "native"):
             raise ValueError(f"scorer backend {backend!r} not in "
                              f"('kernel', 'native')")

@@ -35,7 +35,7 @@ class AdapterBank:
     names: List[str]
     seqs: List[str]
     max_error_rate: float
-    device: str = "cpu"                        # where its locates run
+    device: str = "cuda"                       # where its locates run
     masks: np.ndarray = field(init=False)      # [A, M] uint8
     lens: np.ndarray = field(init=False)       # [A] int32
     k_table: np.ndarray = field(init=False)    # [A, M+1] int32
@@ -60,7 +60,7 @@ class AdapterBank:
 
     @classmethod
     def from_fasta(cls, path, max_error_rate: float,
-                   device: str = "cpu") -> "AdapterBank":
+                   device: str = "cuda") -> "AdapterBank":
         names, seqs = [], []
         for rec in read_fasta(path):
             names.append(rec.id)
@@ -69,7 +69,7 @@ class AdapterBank:
 
     @classmethod
     def from_pairs(cls, pairs, max_error_rate: float,
-                   device: str = "cpu") -> "AdapterBank":
+                   device: str = "cuda") -> "AdapterBank":
         names = [p[0] for p in pairs]
         seqs = [p[1].upper() for p in pairs]
         return cls(names, seqs, max_error_rate, device)

@@ -78,7 +78,7 @@ class CleanReport:
 
 def linked_trim(records: Sequence[Record], pairs: Sequence[PrimerPair],
                 e: float = 0.1, match_read_wildcards: bool = False,
-                device: str = "cpu"
+                device: str = "cuda"
                 ) -> Tuple[List[Record], List[Record]]:
     """Round-1 linked trimming. Returns (trimmed, untrimmed).
 
@@ -160,7 +160,7 @@ def residual_primer_failsafe(records: Sequence[Record],
 
 def unlinked_round2(records: Sequence[Record], pairs: Sequence[PrimerPair],
                     e: float = 0.1, match_read_wildcards: bool = False,
-                    device: str = "cpu"
+                    device: str = "cuda"
                     ) -> Tuple[List[Record], int]:
     """Round 2 (:463-508): independent -g FWD and -a REV trims; neither
     required. Returns (records, n_modified)."""
@@ -191,7 +191,7 @@ def clean_primers(records: Sequence[Record], r1_primer_fasta: str,
                   outdir: Optional[str] = None, name: str = "sample",
                   e: float = 0.1, do_round2: bool = True,
                   match_read_wildcards: bool = False,
-                  device: str = "cpu"
+                  device: str = "cuda"
                   ) -> Tuple[List[Record], CleanReport]:
     """Full stage-04 pipeline for one sample's consensus FASTA.
 

@@ -113,7 +113,7 @@ class ReorientConfig:
     # insert between the primers.
     keep_primers: bool = True
     # torch device of the primer scans ("cuda": the locate kernel)
-    device: str = "cpu"
+    device: str = "cuda"
 
     # legacy alias (pre-r3 callers passed max_error_rate = 1 - q)
     max_error_rate: Optional[float] = None
@@ -145,7 +145,7 @@ def parse_orientation_config(text: str) -> List[Tuple[str, List[str]]]:
     return out
 
 
-def build_primer_bank(primer_fasta: str, q: float, device: str = "cpu"
+def build_primer_bank(primer_fasta: str, q: float, device: str = "cuda"
                       ) -> Tuple[AdapterBank, List[str]]:
     """Bank of each primer and its reverse complement ('-NAME'), with
     the pychopper edlib budget: max edit distance floor((1-q) * len)

@@ -1,16 +1,15 @@
-"""Stage graph of the COI main path, on one torch device.
+"""Stage graph of the COI and rRNA paths, on one torch device.
 
 Copy of ``tpu_orc/pipeline/stages.py``; the device seam:
-``PipelineConfig.device`` names the torch device of every locate, Myers
-and path-bits pileup call ("cuda": the kernels of ``csrc/``; "cpu":
-their plain versions). ``stage_sort`` hands it to the sorter for the
-consensus pileup (the ``device`` backend of ``ORC_PILEUP_BACKEND``),
-whichever backend scores the bin. ``run_all`` (:244) differs in three
-places:
+``PipelineConfig.device`` names the torch device of every locate, Myers,
+path-bits pileup and Viterbi call ("cuda": the kernels of ``csrc/``;
+"cpu": their plain versions). ``stage_sort`` hands it to the sorter for
+the consensus pileup (the ``device`` backend of ``ORC_PILEUP_BACKEND``),
+whichever backend scores the bin; ``stage_rrna`` to stage 05a's finders.
+``run_all`` (:244) differs in two places:
 
-* it raises ``NotImplementedError`` up front for a non-COI amplicon:
-  stage 05a (rRNA) is not ported yet;
-* it raises for ``use_mesh``: the multi-device path is not ported;
+* it raises ``NotImplementedError`` for ``use_mesh``: the multi-device
+  path is not ported;
 * it never opens ``utils.profiling.device_trace`` (a jax.profiler trace,
   not ported yet).
 
@@ -19,7 +18,9 @@ places:
   02 demux      pass.fastq           -> demuxed/SP5/, demuxed/SP27/
   03 sort       demuxed bin          -> sorted/<barcode>/ + consensus file
   04 clean      consensus fasta      -> primerless/<barcode>/
-  05b reorganise cleaned COI contigs -> COI_gene/<barcode>/
+  05a rrna      cleaned contigs      -> rRNA_genes/<barcode>_{18S,28S}.fa
+                                        (amplicons other than COI)
+  05b reorganise cleaned COI contigs -> COI_gene/<barcode>/ (COI)
   LX summary    sorted/              -> amplicon_summary.tsv
 
 Every stage's output directory is a durable checkpoint; any stage can be
@@ -31,7 +32,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 from ..io.fastq import read_records
 from .qc import write_stats
@@ -55,6 +56,10 @@ class PipelineConfig:
     # cutadapt --match-read-wildcards for stage 04: enable with -amb
     # consensus so IUPAC ambiguity codes still match primers
     match_read_wildcards: bool = False
+    rrna_exemplars_18s: Optional[str] = None  # FASTA paths
+    rrna_exemplars_28s: Optional[str] = None
+    rrna_hmm: Optional[str] = None            # HMMER3 file (barrnap euk.hmm)
+    rrna_cm: Optional[str] = None             # Infernal .cm (Rfam; rrna/cm.py)
     # multi-device sharding is not ported: run_all raises when set
     use_mesh: bool = False
     # Concurrent barcode bins (the reference's --array=1-96 fan-out,
@@ -165,6 +170,37 @@ def stage_clean(consensus_fasta: str, outdir: str, barcode: str,
                          device=cfg.device)
 
 
+def stage_rrna(cleaned_fasta: str, outdir: str, barcode: str,
+               cfg: PipelineConfig):
+    """05a: HMMER3 model file > exemplar FASTAs > conserved-core block
+    profiles with single-anchor fallback (zero-config default;
+    rrna/profiles.py), on ``cfg.device``."""
+    from ..io.fastq import read_fasta
+    from ..rrna.extract import extract_rrna
+    ex18 = ([r.seq for r in read_fasta(cfg.rrna_exemplars_18s)]
+            if cfg.rrna_exemplars_18s else None)
+    ex28 = ([r.seq for r in read_fasta(cfg.rrna_exemplars_28s)]
+            if cfg.rrna_exemplars_28s else None)
+    p18 = p28 = None
+    if cfg.rrna_cm:
+        # pybarrnap/infernal variant (README.md:50-51): Rfam-layout .cm
+        # models, scored via each CM's embedded p7 filter (rrna/cm.py)
+        from ..rrna.cm import parse_cm, profiles_by_gene
+        bygene = profiles_by_gene(parse_cm(cfg.rrna_cm))
+        p18 = bygene.get("18S")
+        p28 = bygene.get("28S")
+    elif cfg.rrna_hmm:
+        from ..rrna.hmm import parse_hmmer3
+        models = {m.name: m for m in parse_hmmer3(cfg.rrna_hmm)}
+        p18 = models.get("18S_rRNA")
+        p28 = models.get("28S_rRNA")
+    records = list(read_records(cleaned_fasta))
+    return extract_rrna(records, os.path.join(outdir, "rRNA_genes"),
+                        barcode, exemplars_18s=ex18, exemplars_28s=ex28,
+                        profile_18s=p18, profile_28s=p28,
+                        device=cfg.device)
+
+
 def stage_reorganise_cois(outdir: str) -> Dict[str, str]:
     """05b (05b_reorganise_COIs.sh:20-51): copy every
     primerless/<sample>/[COIs/]cleaned*.fasta to
@@ -195,15 +231,11 @@ def stage_reorganise_cois(outdir: str) -> Dict[str, str]:
 
 def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
             cfg: PipelineConfig, prefix: str = "amplicons") -> Dict:
-    """00 -> 05b on one COI dataset FASTQ. Returns a run report dict and
+    """00 -> 05 on one dataset FASTQ. Returns a run report dict and
     writes run_report.json + metrics.json (per-stage wall time and
     throughput)."""
     from ..utils.profiling import Metrics
 
-    if amplicon.upper() != "COI":
-        raise NotImplementedError(
-            "stage 05a (rRNA extraction) is not ported; run_all takes the "
-            "COI amplicon only")
     if cfg.use_mesh:
         raise NotImplementedError("the multi-device path is not ported")
     os.makedirs(outdir, exist_ok=True)
@@ -232,7 +264,7 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
     report["barcodes"] = {}
 
     def process_bin(comb: str):
-        """Stages 03-04 for one barcode bin — the reference's SLURM
+        """Stages 03-05 for one barcode bin — the reference's SLURM
         array-task unit (03_amplicon_sorter.sh:7). Bins are fully
         independent (own dirs, own seeded sorter), so
         cfg.bin_workers > 1 overlaps one bin's host-side consensus
@@ -252,6 +284,14 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
                                           amplicon, cfg)
                 st.count(n_contigs=crep.total)
             rep_bc["cleaned"] = len(clean)
+            cleaned_path = os.path.join(outdir, "primerless", comb,
+                                        f"cleaned_{comb}.fasta")
+            if amplicon.upper() != "COI":
+                # runs by default: anchor mode needs no model files
+                with met.stage(f"05_rrna/{comb}") as st:
+                    hits = stage_rrna(cleaned_path, outdir, comb, cfg)
+                    st.count(n_contigs=len(clean))
+                rep_bc["rrna"] = {g: len(h) for g, h in hits.items()}
         return comb, rep_bc
 
     combs = sorted(demux_rep["final_bins"])
@@ -265,10 +305,11 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
             comb, rep_bc = process_bin(comb)
             report["barcodes"][comb] = rep_bc
 
-    with met.stage("05b_reorganise_cois") as st:
-        copied = stage_reorganise_cois(outdir)
-        st.count(n_contigs=len(copied))
-    report["coi_gene"] = {"samples": len(copied)}
+    if amplicon.upper() == "COI":
+        with met.stage("05b_reorganise_cois") as st:
+            copied = stage_reorganise_cois(outdir)
+            st.count(n_contigs=len(copied))
+        report["coi_gene"] = {"samples": len(copied)}
 
     summarize_barcode_dir(os.path.join(outdir, "sorted"),
                           os.path.join(outdir, "amplicon_summary.tsv"))

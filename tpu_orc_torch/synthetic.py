@@ -18,7 +18,9 @@ main path without the real files:
 Not reachable from the CLI. :func:`make_plate` follows ``bench.py``'s
 plate generator: each bin holds reads of one (or, for the enlarged bin,
 two) planted COI templates between the primers, half reverse-
-complemented.
+complemented. :func:`make_rrna_plate` does the same with rDNA templates
+(18S | ITS1 | 5.8S | ITS2 | 28S, after ``tests/test_rrna_accuracy.py``'s
+``make_rdna_contig``) between the RNA primers.
 """
 from __future__ import annotations
 
@@ -151,6 +153,58 @@ def make_plate(n_per_bin: int, n5: int = 12, n27: int = 8, seed: int = 11,
                 if (i5 + i27 + r) % 2:
                     s = encode.revcomp(s)
                 rid = f"p{i5}_{i27}_{r}"
+                recs.append(Record(rid, rid, s, "I" * len(s)))
+    rnd.shuffle(recs)
+    return recs, planted
+
+
+def rdna_template(rnd: random.Random) -> str:
+    """One synthetic rDNA amplicon template of about 3.2-3.6 kb: 18S with
+    the four conserved SSU blocks (ending with the ITS1 site), ITS1, a
+    5.8S with the ITS3 site, ITS2, and 28S (an unconserved leader of the
+    documented lead length, then the three LSU blocks), the blocks from
+    ``rrna/profiles.py`` with their IUPAC codes made concrete and the
+    variable regions random, of random length."""
+    from .rrna.profiles import EUK_LSU_BLOCKS, EUK_SSU_BLOCKS
+    var = lambda n: _rand(rnd, int(n * rnd.uniform(0.9, 1.1)))
+    ssu = [concretize(rnd, b[1]) for b in EUK_SSU_BLOCKS]
+    lsu = [concretize(rnd, b[1]) for b in EUK_LSU_BLOCKS]
+    s18 = (var(59) + ssu[0] + var(470) + ssu[1] + var(1030) + ssu[2]
+           + var(130) + ssu[3])
+    s58 = var(40) + "GCATCGATGAAGAACGCAGC" + var(95)
+    s28 = (_rand(rnd, EUK_LSU_BLOCKS[0][2]) + lsu[0] + var(540) + lsu[1]
+           + var(290) + lsu[2] + var(90))
+    return s18 + var(220) + s58 + var(200) + s28
+
+
+def make_rrna_plate(n_per_bin: int, n5: int = 12, n27: int = 8,
+                    seed: int = 13, enlarged: Tuple[int, int] | None = None,
+                    enlarged_reads: int = 400, error_rate: float = 0.05,
+                    bank_seed: int = 5):
+    """rRNA plate reads: SP5 + RNA forward primer + rDNA template (5%
+    nanopore-like noise) + RNA reverse primer + SP27-rc, half reverse-
+    complemented, shuffled. Each (SP5, SP27) bin holds ``n_per_bin``
+    reads of one template; the ``enlarged`` bin holds ``enlarged_reads``
+    reads of two. Returns (records, planted) as :func:`make_plate`."""
+    b = banks(bank_seed)
+    rnd = random.Random(seed)
+    rna_f = concretize(rnd, b["rna"][0][1])
+    rna_r = concretize(rnd, b["rna"][1][1])
+    recs: List[Record] = []
+    planted: Dict[Tuple[str, str], List[str]] = {}
+    for i5 in range(n5):
+        for i27 in range(n27):
+            big = enlarged == (i5, i27)
+            tmpls = [rdna_template(rnd) for _ in range(2 if big else 1)]
+            key = (b["sp5"][i5][0], b["sp27rc"][i27][0])
+            planted[key] = [rna_f + t + rna_r for t in tmpls]
+            for r in range(enlarged_reads if big else n_per_bin):
+                tmpl = tmpls[r % len(tmpls)]
+                ins = rna_f + mutate(rnd, tmpl, error_rate) + rna_r
+                s = b["sp5"][i5][1] + ins + b["sp27rc"][i27][1]
+                if (i5 + i27 + r) % 2:
+                    s = encode.revcomp(s)
+                rid = f"r{i5}_{i27}_{r}"
                 recs.append(Record(rid, rid, s, "I" * len(s)))
     rnd.shuffle(recs)
     return recs, planted
