@@ -12,15 +12,25 @@ Phases:
   2. locate kernel vs plain: FRONT (SP5 bank), BACK (SP27-rc bank), INFIX
      (reorient primer bank, custom k), 16,384 reads at L = 512, half
      reverse-complemented; all 8 outputs must be equal;
-  3. Myers kernel vs plain: dense 1000 x 1000 NW at ~500 bp, the listed-
-     tile entry point over the gated upper triangle of the same block,
-     smaller SHW and HW with end positions; equal;
+  3. Myers kernel vs plain, in both designs of csrc/myers.cu (thread and
+     warp) and in the design the wrapper picks, each equal to the plain
+     version and the two designs equal to each other, each timed: dense
+     1000 x 1000 NW at ~500 bp (W 17), the listed-tile entry point over
+     the gated upper triangle of the same block, smaller SHW and HW with
+     end positions; the two designs over launch sizes at W 17 (where the
+     wrapper's crossover comes from); and the rRNA bins' launches at W
+     112, the species ladder's dense 8 x 32 reads and the gene stage's
+     one 32 x 128 tile over a 24-read bin, and 05a's HW anchor locate at
+     W 1 (the plain version runs once there, timed over that call); and
+     the enlarged rRNA bin's gene stage (37 listed tiles over 400 reads,
+     ~150,000 pairs at W 112), the two designs against each other only;
   4. fused demux, kernel path vs plain path on the card, same reads: the
      8 decision vectors equal;
   5. path-bits pileup kernel vs plain at the consensus's shapes: one
      490 bp draft x 100 reads (16 words, 512 columns), 24 groups x 50
-     reads in one launch, and one 1,700 bp draft (54 words, 2048
-     columns) x 50 reads; equal on the region the traceback reads, and
+     reads in one launch, one 1,700 bp draft (54 words, 2048 columns) x
+     50 reads, and one 3,400 bp draft (107 words, the rRNA bins' width,
+     4096 columns) x 24 reads; equal on the region the traceback reads, and
      the native traceback of the planes gives the native pileup's
      counts; the planes' copy to the host and the two native pileups
      are timed too;
@@ -43,17 +53,21 @@ Phases:
  10. run_all -a RNA with TPU_ORC_LOCATE_IMPL=ks on a plate of 12 SP5 x 8
      SP27 bins x 24 reads of 3.2-3.6 kb rDNA, one bin enlarged to 400
      reads of two templates: only the KS locate kernels launched, the
-     Viterbi and Myers kernels launched, an 18S and a 28S hit in every
-     bin; then stages 01-02 again with the wavefront locate, their files
-     byte-identical to the KS run's.
-Prints a JSON line of per-kernel numbers, the card line, and last the
-result line. Exits non-zero, printing no result, when any phase fails or
+     Viterbi and Myers kernels launched, every Myers launch on the warp
+     design, an 18S and a 28S hit in every bin; then stages 01-02 again
+     with the wavefront locate, their files byte-identical to the KS
+     run's.
+Phase 1 prints each kernel source's ptxas report (registers, stack
+frame). Prints a JSON line of per-kernel numbers, the card line, and last
+the result line. Exits non-zero, printing no result, when any phase fails or
 there is no CUDA device. Times are medians of 5 timed runs (3 for the
 plain versions of phases 8 and 9) after a warm-up, from CUDA events; the
 tolerance of every comparison is zero (integer outputs, and float32
 scores compared bit for bit). A kernel's ``launches`` are counted over
 the run_all of its path (phase 6 for the wavefront locate and Myers,
-phase 7 for the pileup, phase 10 for the KS locate and the Viterbi).
+phase 7 for the pileup, phase 10 for the KS locate, the Viterbi and the
+rRNA Myers entries), both Myers designs together; a Myers entry's ``ms``
+is the design the wrapper picks.
 
 ``bound_ms`` is the least time the card could take for the kernel's work
 at these inputs: the larger of the bytes it must move (each input read
@@ -119,6 +133,13 @@ def read_tree(root):
             with (gzip.open if f.endswith(".gz") else open)(p, "rb") as fh:
                 out[os.path.relpath(p, root)] = fh.read()
     return out
+
+
+def myers_launches(counts):
+    """Myers launches of one run_all by entry point, both designs
+    together, under the kernel JSON's names."""
+    return {f"myers_{e}": counts[f"myers_{e}_thread"]
+            + counts[f"myers_{e}_warp"] for e in ("dense", "pairs")}
 
 
 def max_abs_err(x, y) -> int:
@@ -279,6 +300,80 @@ class Smoke:
                         OPS_PER_CELL["locate"] * cells)
 
     # -- phase 3 ---------------------------------------------------------
+    def myers_case(self, label, u, mode="NW", tiles=None, plain_reps=5):
+        """One launch of csrc/myers.cu in each design and in the wrapper's
+        choice, each held against the plain version (on the listed tiles
+        for the pairs entry) and the two designs against each other, then
+        timed. ``plain_reps`` 1 times the plain version over the one call
+        that the comparison makes (its Python loop walks every column).
+        Returns (max_abs_err, {design: ms}, plain ms, pairs launched, W)."""
+        torch = self.torch
+        from tpu_orc_torch.align import myers as M
+        extra = () if tiles is None else tiles
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = M.myers_plain(*u, mode, *extra)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        mask = torch.zeros(want[0].shape, dtype=torch.bool,
+                           device=want[0].device)
+        if tiles is None:
+            mask[:] = True
+            pairs = mask.numel()
+        else:
+            ti, tj, TI, TJ = tiles
+            for a, b in zip(ti.tolist(), tj.tolist()):
+                mask[a * TI:(a + 1) * TI, b * TJ:(b + 1) * TJ] = True
+            pairs = ti.numel() * TI * TJ
+        got = {d: M.myers_cuda(*u, mode, *extra, design=d)
+               for d in M.DESIGNS}
+        got["chosen"] = M.myers_cuda(*u, mode, *extra)
+        torch.cuda.synchronize()
+        for d, g in got.items():
+            for x, w in zip(g, want):
+                assert torch.equal(x[mask], w[mask]), \
+                    f"myers {label}: {d} design differs from plain"
+        for x, y in zip(got["thread"], got["warp"]):
+            assert torch.equal(x[mask], y[mask]), \
+                f"myers {label}: the designs differ"
+        err = max(max_abs_err(x[mask], w[mask])
+                  for g in got.values() for x, w in zip(g, want))
+        ms = {d: cuda_ms(lambda d=d: M.myers_cuda(*u, mode, *extra,
+                                                  design=d))
+              for d in M.DESIGNS}
+        ms["chosen"] = cuda_ms(lambda: M.myers_cuda(*u, mode, *extra))
+        if plain_reps > 1:
+            pms = cuda_ms(lambda: M.myers_plain(*u, mode, *extra),
+                          reps=plain_reps)
+        W = u[0].shape[1] // M.NCHAN
+        print(f"   myers {label}, W {W}: both designs equal to plain and to "
+              f"each other; thread {ms['thread']:.3f} ms, warp "
+              f"{ms['warp']:.3f} ms, the wrapper's choice "
+              f"({M.choose_design(pairs, W)}) {ms['chosen']:.3f} ms, plain "
+              f"{pms:.3f} ms", flush=True)
+        return err, ms, pms, pairs, W
+
+    def myers_record(self, name, replaces, label, u, tiles=None,
+                     plain_reps=5):
+        """:meth:`myers_case`, then the kernel entry at the wrapper's
+        choice, its bound counted from the word steps of this launch:
+        each pattern's words up to row m, each text column."""
+        err, ms, pms, _, _ = self.myers_case(label, u, "NW", tiles,
+                                             plain_reps)
+        nwp = (u[1].double() + 31).div(32).floor()
+        ncol = u[3].double().clamp(max=u[2].shape[0])
+        if tiles is None:
+            steps = float(nwp.sum() * ncol.sum())
+            n_bytes = nbytes(*u) + 2 * 4 * nwp.numel() * ncol.numel()
+        else:
+            ti, tj, TI, TJ = tiles
+            steps = float((nwp.view(-1, TI).sum(1)[ti.long()]
+                           * ncol.view(-1, TJ).sum(1)[tj.long()]).sum())
+            n_bytes = nbytes(*u, ti, tj) + 2 * 4 * ti.numel() * TI * TJ
+        self.record(name, "tpu_orc_torch/csrc/myers.cu",
+                    f"tpu_orc/align/pallas_myers.py:{replaces}", err,
+                    ms["chosen"], pms, n_bytes, OPS_PER_CELL["myers"] * steps)
+
     def myers(self):
         import random
         import numpy as np
@@ -292,24 +387,9 @@ class Smoke:
                        for k in range(1000)), key=len)
         W = -(-max(len(x) for x in seqs) // 32) * 32
         pc, pl = synthetic.codes(seqs, W)
-        # dense NW, all pairs
         up = M._upload(pc, pl, pc, pl, 1000, 1000, "cuda")
-        got = M.myers_cuda(*up, "NW")
-        want = M.myers_plain(*up, "NW")
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), "myers dense NW differs"
-        err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        ms = cuda_ms(lambda: M.myers_cuda(*up, "NW"))
-        pms = cuda_ms(lambda: M.myers_plain(*up, "NW"))
-        print("   myers dense NW 1000 x 1000 at ~500 bp: equal")
-        # word steps: each pattern's words up to row m, each text column
-        nwp = (up[1].double() + 31).div(32).floor()
-        ncol = up[3].double().clamp(max=up[2].shape[0])
-        self.record("myers_dense", "tpu_orc_torch/csrc/myers.cu",
-                    "tpu_orc/align/pallas_myers.py:56", err, ms, pms,
-                    nbytes(*up, *got),
-                    OPS_PER_CELL["myers"] * float(nwp.sum() * ncol.sum()))
+        self.myers_record("myers_dense", 56, "dense NW 1000 x 1000 at ~500 bp",
+                          up)
         # listed tiles: the gene stage's upper triangle + 5% length gate
         TI, TJ = M.tile_shape(W // 32)
         P, T = -(-1000 // TI) * TI, -(-1000 // TJ) * TJ
@@ -322,25 +402,9 @@ class Smoke:
         tiles = torch.from_numpy(np.argwhere(need).astype(np.int32)).cuda()
         ti, tj = tiles[:, 0].contiguous(), tiles[:, 1].contiguous()
         upp = M._upload(pc, pl, pc, pl, P, T, "cuda")
-        got = M.myers_cuda(*upp, "NW", ti, tj, TI, TJ)
-        want = M.myers_plain(*upp, "NW", ti, tj, TI, TJ)
-        torch.cuda.synchronize()
-        mask = torch.from_numpy(np.kron(need, np.ones((TI, TJ), bool))
-                                ).cuda()
-        for g, w in zip(got, want):
-            assert torch.equal(g[mask], w[mask]), "myers pairs differs"
-        err = max(max_abs_err(g[mask], w[mask]) for g, w in zip(got, want))
-        ms = cuda_ms(lambda: M.myers_cuda(*upp, "NW", ti, tj, TI, TJ))
-        pms = cuda_ms(lambda: M.myers_plain(*upp, "NW", ti, tj, TI, TJ))
-        print(f"   myers pairs NW: {tiles.shape[0]} of "
-              f"{need.size} tiles listed ({TI} x {TJ}): equal")
-        nwp = (upp[1].double() + 31).div(32).floor().view(-1, TI).sum(1)
-        ncol = upp[3].double().clamp(max=upp[2].shape[0]).view(-1, TJ).sum(1)
-        steps = float((nwp[ti.long()] * ncol[tj.long()]).sum())
-        self.record("myers_pairs", "tpu_orc_torch/csrc/myers.cu",
-                    "tpu_orc/align/pallas_myers.py:242", err, ms, pms,
-                    nbytes(*upp, ti, tj) + 2 * 4 * ti.numel() * TI * TJ,
-                    OPS_PER_CELL["myers"] * steps)
+        self.myers_record("myers_pairs", 242,
+                          f"pairs NW, {ti.numel()} of {need.size} tiles "
+                          f"listed ({TI} x {TJ})", upp, (ti, tj, TI, TJ))
         # SHW and HW with end positions: reads within longer texts
         for mode in ("SHW", "HW"):
             pats = pc[:200, :480]
@@ -349,12 +413,93 @@ class Smoke:
                  + seqs[(k * 7) % 1000][:400] for k in range(300)], W)
             u = M._upload(pats, np.minimum(pl[:200], 480), texts, tl, 200,
                           300, "cuda")
-            got = M.myers_cuda(*u, mode)
-            want = M.myers_plain(*u, mode)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                assert torch.equal(g, w), f"myers {mode} differs"
-            print(f"   myers {mode} 200 x 300 with end positions: equal")
+            self.myers_case(f"{mode} 200 x 300 with end positions", u, mode)
+        # where the thread design overtakes the warp design, at these
+        # ~500 bp reads' width
+        rows = []
+        for P, T in ((8, 32), (8, 128), (8, 512), (8, 1024), (12, 1024),
+                     (16, 1024), (24, 1024), (32, 1024), (128, 1024)):
+            k = np.arange(T) % 1000
+            u = M._upload(pc[:P], pl[:P], pc[k], pl[k], P, T, "cuda")
+            t = {d: cuda_ms(lambda d=d: M.myers_cuda(*u, "NW", design=d))
+                 for d in M.DESIGNS}
+            rows.append(f"{P} x {T}: thread {t['thread']:.4f}, warp "
+                        f"{t['warp']:.4f}")
+        print(f"   myers crossover, dense NW at W {up[0].shape[1] // M.NCHAN}, "
+              f"ms: {'; '.join(rows)}")
+        self.myers_rrna()
+
+    def myers_rrna(self):
+        """The rRNA bins' Myers launches at W 112: the species ladder's
+        dense 8 consensuses x 32 reads, and the gene stage's one listed
+        32 x 128 tile over a 24-read bin, gated as _gated_block gates it;
+        and 05a's anchor locate, HW at W 1. The plain version walks
+        ~3,600 columns in Python, so it runs once, timed over that call."""
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch.align import myers as M
+        from tpu_orc_torch.cluster.scoring import pack_codes
+        from tpu_orc_torch.io import encode
+        from tpu_orc_torch.rrna.anchors import (ANCHOR_18S_END,
+                                                ANCHOR_28S_START)
+        _, recs, _ = self.rrna_plate()
+        codes = [encode.encode_codes(r.seq[:3584]) for r in recs[:64]]
+        pc, pl = pack_codes(codes[:8])
+        tc, tl = pack_codes(codes[8:40])
+        assert pc.shape[1] == 3584, pc.shape
+        up = M._upload(pc, pl, tc, tl, 8, 32, "cuda")
+        self.myers_record("myers_dense_rrna", 56, "dense NW 8 x 32 rRNA reads",
+                          up, plain_reps=1)
+        n = 24
+        bin_codes = sorted(codes[40:40 + n], key=len)
+        packed, lens = pack_codes(bin_codes, count_cap=32)
+        lo = np.minimum.outer(lens[:n], lens[:n])
+        hi = np.maximum.outer(lens[:n], lens[:n])
+        gate = (np.arange(n)[:, None] < np.arange(n)[None, :]) & \
+            (lo * 1.05 >= hi)
+        TI, TJ = M.tile_shape(packed.shape[1] // 32)
+        upp = M._upload(packed, lens, packed, lens, TI, TJ, "cuda")
+        tiles = torch.zeros((2, 1), dtype=torch.int32, device=upp[0].device)
+        self.myers_record("myers_pairs_rrna", 242,
+                          f"pairs NW, one {TI} x {TJ} tile over {n} rRNA "
+                          f"reads ({int(gate.sum())} gated pairs)", upp,
+                          (tiles[0], tiles[1], TI, TJ), plain_reps=1)
+        # the enlarged bin's gene stage: 400 reads, tens of listed tiles;
+        # the designs against each other (the plain version would take
+        # minutes here)
+        n = 400
+        big = sorted((encode.encode_codes(r.seq[:3584])
+                      for r in recs[:n]), key=len)
+        packed, lens = pack_codes(big, count_cap=512)
+        lo = np.minimum.outer(lens[:n], lens[:n])
+        hi = np.maximum.outer(lens[:n], lens[:n])
+        gfull = np.zeros((512, 512), bool)
+        gfull[:n, :n] = (np.arange(n)[:, None] < np.arange(n)[None, :]) & \
+            (lo * 1.05 >= hi)
+        need = gfull.reshape(512 // TI, TI, 512 // TJ, TJ).any(axis=(1, 3))
+        tg = torch.from_numpy(np.argwhere(need).astype(np.int32)).cuda()
+        tiles = (tg[:, 0].contiguous(), tg[:, 1].contiguous(), TI, TJ)
+        ub = M._upload(packed, lens, packed, lens, 512, 512, "cuda")
+        got = [M.myers_cuda(*ub, "NW", *tiles, design=d) for d in M.DESIGNS]
+        torch.cuda.synchronize()
+        mask = torch.from_numpy(np.kron(need, np.ones((TI, TJ), bool))).cuda()
+        for x, y in zip(*got):
+            assert torch.equal(x[mask], y[mask]), "the designs differ"
+        ms = {d: cuda_ms(lambda d=d: M.myers_cuda(*ub, "NW", *tiles,
+                                                  design=d), reps=3)
+              for d in M.DESIGNS}
+        pairs = tg.shape[0] * TI * TJ
+        print(f"   myers pairs NW, {tg.shape[0]} listed {TI} x {TJ} tiles over "
+              f"{n} rRNA reads ({pairs} pairs), W 112: the designs equal; "
+              f"thread {ms['thread']:.3f} ms, warp {ms['warp']:.3f} ms, the "
+              f"wrapper's choice {M.choose_design(pairs, 112)}")
+        anchors = [encode.encode_codes(a)
+                   for a in (ANCHOR_18S_END, ANCHOR_28S_START)]
+        ac, al = pack_codes(anchors, cap=32)
+        al = np.array([len(a) for a in anchors], np.int32)
+        ua = M._upload(ac, al, tc[:8], tl[:8], 2, 8, "cuda")
+        self.myers_case("HW, 2 anchors x 8 rRNA reads", ua, "HW",
+                        plain_reps=1)
 
     # -- phase 4 ---------------------------------------------------------
     def fused(self):
@@ -400,7 +545,9 @@ class Smoke:
                  ("pileup_multi", "pileup.py:132",
                   [group(rnd.randint(470, 500), 50) for _ in range(24)]),
                  ("pileup_single, long draft", "pileup.py:38",
-                  [group(1700, 50)]))
+                  [group(1700, 50)]),
+                 ("pileup_single, rRNA draft", "pileup.py:38",
+                  [group(3400, 24)]))
         for name, line, groups in cases:
             drafts = [d for d, _ in groups]
             reads = [rs for _, rs in groups]
@@ -443,6 +590,7 @@ class Smoke:
                         OPS_PER_CELL["pileup"] * steps)
         # the JSON line keeps the main path's two contracts
         self.kernels.pop("pileup_single, long draft")
+        self.kernels.pop("pileup_single, rRNA draft")
 
     # -- phases 6 and 7 ------------------------------------------------------
     def plate(self):
@@ -520,9 +668,10 @@ class Smoke:
         from tpu_orc_torch import synthetic
         out = os.path.join(WORK, "plate", "native")
         rep, counts = self.coi_run(out, "native")
-        self.launches({k: n for k, n in counts.items()
-                       if k.startswith(("locate_", "myers_"))
-                       and not k.startswith("locate_ks_")})
+        names = [f"locate_{m}" for m in ("front", "back", "infix")]
+        self.launches({k: counts[k] for k in names})
+        self.launches(myers_launches(counts))
+        names += list(myers_launches(counts))
         bins = rep["barcodes"]
         assert rep["demux"]["bins"] == 96, rep["demux"]
         worst = 1.0
@@ -541,8 +690,7 @@ class Smoke:
         print(f"   96 bins, species groups as planted (2 in the enlarged "
               f"bin), lowest consensus identity {worst:.4f}")
         assert worst >= 0.97, worst
-        zero = [k for k, v in self.kernels.items()
-                if k.startswith(("locate_", "myers_")) and v["launches"] == 0]
+        zero = [k for k in names if self.kernels[k]["launches"] == 0]
         assert not zero, f"kernels not launched during run_all: {zero}"
         self.native_out = out
 
@@ -684,7 +832,7 @@ class Smoke:
             if p is profs["18S"]:            # the default path's profile
                 n_ops = OPS_PER_CELL["viterbi"] * float(lens.sum()) * p.K
                 self.record("viterbi", "tpu_orc_torch/csrc/viterbi.cu",
-                            "tpu_orc/rrna/hmm.py:169", err, ms, pms,
+                            "tpu_orc/rrna/hmm.py:170", err, ms, pms,
                             nbytes(*args, *got), n_ops, FP32_OPS_PER_S)
 
     # -- phase 10 --------------------------------------------------------
@@ -703,11 +851,17 @@ class Smoke:
         self.launches({f"locate_ks_{m}": counts[f"locate_ks_{m}"]
                        for m in ("front", "back", "infix")})
         self.launches({"viterbi": counts["viterbi_scan"]})
+        self.launches({f"{k}_rrna": n
+                       for k, n in myers_launches(counts).items()})
         assert rep["demux"]["bins"] == 96, rep["demux"]
         zero = [k for k in ("locate_ks_front", "locate_ks_back",
                             "locate_ks_infix", "viterbi_scan",
-                            "myers_dense") if counts[k] == 0]
+                            "myers_dense_warp", "myers_pairs_warp")
+                if counts[k] == 0]
         assert not zero, f"kernels not launched during run_all: {zero}"
+        thread = [k for k in ("myers_dense_thread", "myers_pairs_thread")
+                  if counts[k]]
+        assert not thread, f"Myers launches off the warp design: {thread}"
         wf = [k for k in ("locate_front", "locate_back", "locate_infix")
               if counts[k]]
         assert not wf, f"wavefront locate launched under ks: {wf}"

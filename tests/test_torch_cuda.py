@@ -167,8 +167,8 @@ def test_viterbi_kernel_equals_plain(cuda):
 
 @pytest.mark.parametrize("mode", ["NW", "SHW", "HW"])
 def test_myers_kernel_equals_plain(cuda, mode):
-    """Dense and listed-tile entry points; patterns from 1 to 1,100 bp
-    (1 to 35 words)."""
+    """Dense and listed-tile entry points in both designs; patterns from 1
+    to 1,100 bp (1 to 35 words)."""
     rng = np.random.default_rng(6)
     base = "".join(rng.choice(list("ACGT"), size=480))
     seqs = [synthetic.mutate(random.Random(k), base, 0.08)
@@ -176,30 +176,110 @@ def test_myers_kernel_equals_plain(cuda, mode):
     W = -(-max(len(s) for s in seqs) // 32) * 32
     pc, pl = synthetic.codes(seqs, W)
     up = M._upload(pc, pl, pc, pl, 128, 128, cuda)
-    kd, kp = M.myers_cuda(*up, mode)
     pd, pp = M.myers_plain(*up, mode)
     ti = torch.tensor([0, 2, 3], dtype=torch.int32, device=cuda)
     tj = torch.zeros(3, dtype=torch.int32, device=cuda)
-    qd, qp = M.myers_cuda(*up, mode, ti, tj, 32, 128)
+    for design in M.DESIGNS:
+        kd, kp = M.myers_cuda(*up, mode, design=design)
+        qd, qp = M.myers_cuda(*up, mode, ti, tj, 32, 128, design=design)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, pd) and torch.equal(kp, pp), design
+        for t in (0, 2, 3):
+            rows = slice(32 * t, 32 * (t + 1))
+            assert torch.equal(qd[rows], pd[rows]), design
+            assert torch.equal(qp[rows], pp[rows]), design
+
+
+def _myers_width_case(rng, W, ncols, device):
+    """13 patterns at width W words (lengths W*32, W*32 - 1, off the word
+    edges and short ones, N in them) and 29 texts of up to ``ncols``
+    codes (an empty and a 1-code text, N, and pad code 5 inside three
+    texts), padded to 16 x 64 as the wrappers pad (patterns m = 1, texts
+    code 5 and n = 1)."""
+    top = W * 32
+    lens = sorted({min(m, top) for m in (top, top - 1, top - 13, top - 39,
+                                         top // 2 + 3, 1, 5, 31, 32, 33)
+                   if m >= 1})
+    lens += [int(rng.integers(1, top + 1)) for _ in range(13 - len(lens))]
+    pats = ["".join(rng.choice(list("ACGTN"), size=m, p=[.24] * 4 + [.04]))
+            for m in lens]
+    tl = [0, 1] + [int(rng.integers(2, ncols + 1)) for _ in range(27)]
+    texts = ["".join(rng.choice(list("ACGTN"), size=n, p=[.23] * 4 + [.08]))
+             for n in tl]
+    pc, pl = synthetic.codes(pats, top)
+    tc, tl = synthetic.codes(texts, ncols)
+    up = M._upload(pc, pl, tc, tl, 16, 64, device)
+    for t in (3, 7, 11):                   # pad code inside a text
+        up[2][int(tl[t]) // 2, t] = 5
+    return up
+
+
+@pytest.mark.parametrize("W", [1, 2, 31, 32, 33, 64, 65, 112, 128, 129,
+                               512])
+def test_myers_designs_at_lane_boundaries(cuda, W):
+    """Both designs equal myers_plain and each other in NW, SHW and HW, on
+    both entry points, at widths on each side of the warp design's
+    words-per-lane steps (32, 64, 128 words) and at 512 (texts of 64
+    codes there, to keep the plain version cheap); one counted launch per
+    call, under its entry point and design."""
+    rng = np.random.default_rng(40 + W)
+    up = _myers_width_case(rng, W, 64 if W == 512 else 100, cuda)
+    ti = torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda)
+    tj = torch.tensor([0, 1, 0], dtype=torch.int32, device=cuda)
+    mask = torch.zeros((16, 64), dtype=torch.bool, device=cuda)
+    mask[0:8, 0:32] = mask[8:16, 32:64] = mask[8:16, 0:32] = True
+    for mode in ("NW", "SHW", "HW"):
+        want = M.myers_plain(*up, mode)
+        got = {}
+        for design in M.DESIGNS:
+            before = M.LAUNCHES.snapshot()
+            dense = M.myers_cuda(*up, mode, design=design)
+            pairs = M.myers_cuda(*up, mode, ti, tj, 8, 32, design=design)
+            torch.cuda.synchronize()
+            after = M.LAUNCHES.snapshot()
+            assert after[f"dense_{design}"] == before[f"dense_{design}"] + 1
+            assert after[f"pairs_{design}"] == before[f"pairs_{design}"] + 1
+            for g, w, q in zip(dense, want, pairs):
+                assert torch.equal(g, w), (mode, design)
+                assert torch.equal(q[mask], w[mask]), (mode, design)
+            got[design] = dense
+        for a, b in zip(got["thread"], got["warp"]):
+            assert torch.equal(a, b), mode
+
+
+def test_myers_tiles_launches_the_chosen_design(cuda):
+    """myers_tiles on CUDA tensors launches the design that choose_design
+    names for the launch's shape."""
+    rng = np.random.default_rng(41)
+    up = _myers_width_case(rng, 112, 100, cuda)
+    before = M.LAUNCHES.snapshot()
+    M.myers_tiles(*up, "NW")
     torch.cuda.synchronize()
-    assert torch.equal(kd, pd) and torch.equal(kp, pp)
-    for t in (0, 2, 3):
-        rows = slice(32 * t, 32 * (t + 1))
-        assert torch.equal(qd[rows], pd[rows])
-        assert torch.equal(qp[rows], pp[rows])
+    key = f"dense_{M.choose_design(16 * 64, 112)}"
+    assert M.LAUNCHES.snapshot()[key] == before[key] + 1
 
 
-@pytest.mark.parametrize("entry", ["single", "multi"])
+PILEUP_CASES = {
+    "single": [(500, 100)],
+    "multi": [(40, 3), (500, 50), (1700, 9), (260, 1), (33, 20), (100, 8)],
+    "single_w107": [(3400, 6)],
+    "single_1_word": [(20, 9)],
+    "multi_1_word_w107": [(20, 5), (3400, 3)],
+}
+
+
+@pytest.mark.parametrize("entry", list(PILEUP_CASES))
 def test_pileup_kernel_equals_plain(cuda, entry):
     """Path bits on the region the traceback reads (read positions below
     each read's length, words below its draft's ceil(len / 32)): one
-    500 bp draft, or six groups with drafts of 33 to 1,700 bp (2 to 54
-    words), a 1-read group, N in drafts and reads; each call is one
-    launch of its contract."""
+    500 bp draft, six groups with drafts of 33 to 1,700 bp (2 to 54
+    words) and a 1-read group, a 3,400 bp draft (W 107, the rRNA bins'
+    width), a 1-word draft alone and beside a W 107 group; N in drafts
+    and reads; each call is one launch of its contract."""
     rng = np.random.default_rng(8)
     rnd = random.Random(8)
-    specs = ([(500, 100)] if entry == "single" else
-             [(40, 3), (500, 50), (1700, 9), (260, 1), (33, 20), (100, 8)])
+    specs = PILEUP_CASES[entry]
+    entry = "single" if len(specs) == 1 else "multi"
     drafts, groups = [], []
     for L, R in specs:
         d = _seqs(rng, 1, L, L + 1)[0]

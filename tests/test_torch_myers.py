@@ -168,3 +168,48 @@ def test_distances_with_pos_equals_xla(patterns, mode):
     assert (want[0][:, 4] == pl).all() and (want[1][:, 4] == 0).all()
     for g, w, what in zip(got, want, ("dist", "pos")):
         np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+def _pipeline_shapes():
+    """(pairs launched, W) of the scorer's Myers launches: the COI gene
+    stage's 1000 x 1000 block (dense, and as the 144 listed 32 x 128
+    tiles of chip_smoke.py), and an rRNA bin of 24 ~3.4 kb reads: the
+    species ladder's 2 consensuses x 24 reads and the gene stage's one
+    listed tile; 05a's anchor locate (2 anchors, W 1)."""
+    from tpu_orc_torch.cluster.scoring import _bucket, _count_cap
+    W_coi = _bucket(490) // 32
+    W_rrna = _bucket(3400) // 32
+    TI, TJ = M.tile_shape(W_rrna)
+    return [
+        pytest.param(1000 * 1000, W_coi, "thread", id="coi_block_dense"),
+        pytest.param(144 * 32 * 128, W_coi, "thread", id="coi_block_tiles"),
+        pytest.param(_count_cap(2) * _count_cap(24), W_rrna, "warp",
+                     id="rrna_ladder_dense"),
+        pytest.param(TI * TJ, W_rrna, "warp", id="rrna_gene_stage_tile"),
+        pytest.param(2 * 8, 1, "warp", id="rrna_anchors"),
+    ]
+
+
+@pytest.mark.parametrize("pairs, W, want", _pipeline_shapes() + [
+    pytest.param(1 << 20, W, "thread" if W <= 32 else "warp",
+                 id=f"many_pairs_W{W}")
+    for W in (1, 2, 31, 32, 33, 64, 65, 128, 129, 256, 257, 512)] + [
+    pytest.param(M.THREAD_MIN_PAIRS - 1, W, "warp", id=f"few_pairs_W{W}")
+    for W in (1, 16, 32, 33)])
+def test_design_choice(pairs, W, want):
+    """csrc/myers.cu's design by launch shape: the thread design for many
+    pairs at W <= 32 words (the COI block), the warp design for the rest
+    (every rRNA launch)."""
+    assert M.choose_design(pairs, W) == want
+
+
+def test_myers_cuda_rejects_unknown_design():
+    """The forcing keyword takes the two designs only, and the launch
+    counter has one key per entry point and design."""
+    rng = np.random.default_rng(9)
+    pc, pl = _pack(_seqs(rng, 3, 5, 60))
+    up = M._upload(pc, pl, pc, pl, 3, 3, "cpu")
+    with pytest.raises(ValueError):
+        M.myers_cuda(*up, "NW", design="block")
+    assert set(M.LAUNCHES.snapshot()) == {
+        "dense_thread", "dense_warp", "pairs_thread", "pairs_warp"}

@@ -11,7 +11,9 @@ by the device of its tensors:
 * a CPU tensor goes to :func:`myers_plain`, the word-parallel recurrence
   over [W, P, T] int64 words (two packed 32-bit Peq words per int64);
 * a CUDA tensor goes to :func:`myers_cuda`, the hand-written kernel in
-  ``csrc/myers.cu``, or the wrapper raises.
+  ``csrc/myers.cu``, or the wrapper raises. The kernel has two designs,
+  one thread or one warp per pair; :func:`choose_design` picks one from
+  the launch's shape.
 
 Distances and positions are bit-identical to the Pallas kernels: the
 word width changes how the DP is cut into words, not its values.
@@ -30,8 +32,33 @@ NCHAN = 8  # channel stride in the packed Peq (0..4 used, 5..7 zero)
 MODES = {"NW": 0, "SHW": 1, "HW": 2}
 MAX_WORDS = 512  # csrc/myers.cu instantiations: patterns up to 16384 bp
 
-#: kernel launches per entry point (csrc/myers.cu), counted by myers_cuda
-LAUNCHES = _build.LaunchCounter(("dense", "pairs"))
+DESIGNS = ("thread", "warp")  # index = csrc/myers.cu DESIGN_THREAD, _WARP
+#: kernel launches by entry point and design (csrc/myers.cu), e.g.
+#: "dense_warp"; counted by myers_cuda
+LAUNCHES = _build.LaunchCounter(tuple(f"{e}_{d}" for e in ("dense", "pairs")
+                                      for d in DESIGNS))
+
+#: The thread design takes launches of at least THREAD_MIN_PAIRS pairs at
+#: W <= THREAD_MAX_WORDS, where one thread per pair fills the card; every
+#: other launch goes to the warp design. Crossover from chip_smoke.py
+#: phase 3 (dense NW, ~500 bp reads at W 17, NVIDIA H100 80GB HBM3 at
+#: 700 W): thread 0.674 / 0.663 / 0.668 ms and warp 0.402 / 0.592 / 0.730
+#: ms at 8,192 / 12,288 / 16,384 pairs; the warp design's time grows with
+#: the pairs from there on, the thread design's stays flat up to ~25,000.
+#: Above 32 words the thread design keeps VP/VN in local memory and the
+#: warp design wins at every size measured there (W 112, the same card:
+#: 0.60 vs 76.7 ms at 256 pairs, 1.55 vs 76.7 ms at 4,096, 70.2 vs 330.6
+#: ms at 151,552).
+THREAD_MAX_WORDS = 32
+THREAD_MIN_PAIRS = 16384
+
+
+def choose_design(pairs: int, W: int) -> str:
+    """The design of ``csrc/myers.cu`` for a launch of ``pairs`` (pattern,
+    text) pairs at ``W`` pattern words: "thread" or "warp"."""
+    if W <= THREAD_MAX_WORDS and pairs >= THREAD_MIN_PAIRS:
+        return "thread"
+    return "warp"
 
 
 def build_peq_packed(codes: np.ndarray, m_lens: np.ndarray,
@@ -169,15 +196,18 @@ def myers_plain(peq, m_lens, texts_T, n_lens, mode: str = "NW",
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _build.load("myers", "orc_myers",
-                       [vp] * 4 + [ci] * 5 + [vp, vp] + [ci] * 3
+                       [vp] * 4 + [ci] * 5 + [vp, vp] + [ci] * 4
                        + [vp, vp, vp])
 
 
 def myers_cuda(peq, m_lens, texts_T, n_lens, mode: str = "NW",
-               tile_i=None, tile_j=None, TI: int = 0, TJ: int = 0):
+               tile_i=None, tile_j=None, TI: int = 0, TJ: int = 0,
+               design: str | None = None):
     """Launch ``csrc/myers.cu`` on the current stream: the dense grid, or
     one grid row per listed tile. Same contract as :func:`myers_plain`
-    except that unlisted blocks are left unwritten."""
+    except that unlisted blocks are left unwritten. ``design`` forces
+    "thread" or "warp" (the card's tests and ``chip_smoke.py`` compare
+    them); by default :func:`choose_design` picks it."""
     P = peq.shape[0]
     N, T = texts_T.shape
     W = peq.shape[1] // NCHAN
@@ -185,8 +215,13 @@ def myers_cuda(peq, m_lens, texts_T, n_lens, mode: str = "NW",
     pos = torch.empty((P, T), dtype=torch.int32, device=peq.device)
     pairs = tile_i is not None
     G = int(tile_i.shape[0]) if pairs else 0
+    if design is None:
+        design = choose_design(G * TI * TJ if pairs else P * T, W)
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r} not in {DESIGNS}")
     if P == 0 or T == 0 or (pairs and G == 0):
         return dist, pos                      # nothing to launch
+    entry = "pairs" if pairs else "dense"
     with torch.cuda.device(peq.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().orc_myers(
@@ -194,9 +229,9 @@ def myers_cuda(peq, m_lens, texts_T, n_lens, mode: str = "NW",
             n_lens.data_ptr(), P, T, N, W, MODES[mode],
             tile_i.data_ptr() if pairs else None,
             tile_j.data_ptr() if pairs else None, G, TI, TJ,
-            dist.data_ptr(), pos.data_ptr(), stream)
-    _build.check(err, f"myers kernel ({'pairs' if pairs else 'dense'})")
-    LAUNCHES.add("pairs" if pairs else "dense")
+            DESIGNS.index(design), dist.data_ptr(), pos.data_ptr(), stream)
+    _build.check(err, f"myers kernel ({entry}, {design} design)")
+    LAUNCHES.add(f"{entry}_{design}")
     return dist, pos
 
 

@@ -10,7 +10,8 @@ takes the place of the two Pallas launches (one draft :92, many groups
   recurrence over a batch of reads in int64 words with 32-bit masks,
   walked as a wavefront over (read position, draft word);
 * a CUDA tensor goes to :func:`path_bits_cuda`, the hand-written kernel
-  in ``csrc/pileup.cu``, or the wrapper raises.
+  in ``csrc/pileup.cu`` (one warp per read, walking the same wavefront
+  with the draft words spread over the lanes), or the wrapper raises.
 
 The planes are bit-identical to the Pallas kernels on the region the host
 traceback (``native.pileup_from_bits``) reads: read positions below the
