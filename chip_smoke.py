@@ -9,9 +9,11 @@ comes out.
 Needs one CUDA device and the CUDA toolkit (nvcc); imports no JAX.
 Phases:
   1. setup: card name and power limit, versions, kernel build time;
-  2. locate kernel vs plain: FRONT (SP5 bank), BACK (SP27-rc bank), INFIX
-     (reorient primer bank, custom k), 16,384 reads at L = 512, half
-     reverse-complemented; all 8 outputs must be equal;
+  2. wavefront locate kernel (one warp per read and adapter) vs plain:
+     FRONT (SP5 bank), BACK (SP27-rc bank), INFIX (reorient primer bank,
+     custom k) at min_overlap 3, and BACK at min_overlap 0, on 16,384
+     reads at L = 512, half reverse-complemented, and on 2,048 rRNA reads
+     at L = 3,584 with some empty reads; all 8 outputs must be equal;
   3. Myers kernel vs plain, in both designs of csrc/myers.cu (thread and
      warp) and in the design the wrapper picks, each equal to the plain
      version and the two designs equal to each other, each timed: dense
@@ -48,15 +50,18 @@ Phases:
      with some empty reads: all 8 outputs equal, and equal to the
      wavefront kernel's at the pipeline's min_overlap 3;
   9. Viterbi kernel vs plain: 8 sequences x 3,584 positions against the
-     default 18S profile, the reversed default 28S profile and a random
-     1,800-node profile; score bits, end position and end node equal;
+     default 18S profile and the reversed default 28S profile in both
+     designs (one warp or one block per sequence), a random 1,800-node
+     profile in the block design and a random 512-node one (the warp
+     design's limit) in both; score bits, end position and end node equal
+     to the plain version and between the designs;
  10. run_all -a RNA with TPU_ORC_LOCATE_IMPL=ks on a plate of 12 SP5 x 8
      SP27 bins x 24 reads of 3.2-3.6 kb rDNA, one bin enlarged to 400
      reads of two templates: only the KS locate kernels launched, the
-     Viterbi and Myers kernels launched, every Myers launch on the warp
-     design, an 18S and a 28S hit in every bin; then stages 01-02 again
-     with the wavefront locate, their files byte-identical to the KS
-     run's.
+     Viterbi and Myers kernels launched, every Myers and every Viterbi
+     launch on the warp design, an 18S and a 28S hit in every bin; then
+     stages 01-02 again with the wavefront locate (its launches counted
+     and the stages timed), their files byte-identical to the KS run's.
 Phase 1 prints each kernel source's ptxas report (registers, stack
 frame). Prints a JSON line of per-kernel numbers, the card line, and last
 the result line. Exits non-zero, printing no result, when any phase fails or
@@ -66,8 +71,8 @@ tolerance of every comparison is zero (integer outputs, and float32
 scores compared bit for bit). A kernel's ``launches`` are counted over
 the run_all of its path (phase 6 for the wavefront locate and Myers,
 phase 7 for the pileup, phase 10 for the KS locate, the Viterbi and the
-rRNA Myers entries), both Myers designs together; a Myers entry's ``ms``
-is the design the wrapper picks.
+rRNA Myers entries), both designs of a kernel together; a Myers or
+Viterbi entry's ``ms`` is the design the wrapper picks.
 
 ``bound_ms`` is the least time the card could take for the kernel's work
 at these inputs: the larger of the bytes it must move (each input read
@@ -269,35 +274,65 @@ class Smoke:
                 "cuda")[0],
         }
 
+    def rrna_reads(self):
+        """2,048 reads of the rRNA plate at L 3,584, every 97th empty: the
+        locate shape of an rRNA plate's stages 01-02."""
+        if not hasattr(self, "_rreads"):
+            from tpu_orc_torch import synthetic
+            _, recs, _ = self.rrna_plate()
+            rmasks, rlens = synthetic.read_masks(
+                [r.seq[:3584] for r in recs[:2048]], 3584)
+            rlens[::97] = 0                  # some empty reads
+            self._rreads = rmasks, rlens
+        return self._rreads
+
     # -- phase 2 ---------------------------------------------------------
     def locate(self):
+        """The wavefront kernel against locate_plain in the three modes at
+        min_overlap 3 and in BACK at 0 (the empty reads' cell (0, 0)), at
+        the COI and the rRNA reads' shapes; timed at min_overlap 3. The
+        plain version runs once at the rRNA shape (host clock over that
+        call)."""
         import numpy as np
         torch = self.torch
         from tpu_orc_torch.align import locate as L
-        masks, lens = self.reads()
-        rt = torch.from_numpy(np.ascontiguousarray(masks.T)).cuda()
-        ln = torch.from_numpy(lens).cuda()
-        for mode, bank in self.banks().items():
-            tabs = L.tables_for_bank(bank, mode, 3).tensors("cuda")
-            A = len(bank)
-            got = L.locate_cuda(tabs, rt, ln, mode, A)
-            want = L.locate_plain(tabs, rt, ln, mode, A)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                bad = [k for k in range(8) if not torch.equal(got[k],
-                                                              want[k])]
-                raise AssertionError(f"locate {mode}: outputs {bad} differ")
-            hits = int(got[4].sum())
-            ms = cuda_ms(lambda: L.locate_cuda(tabs, rt, ln, mode, A))
-            pms = cuda_ms(lambda: L.locate_plain(tabs, rt, ln, mode, A))
-            print(f"   locate {mode}: {A} adapters x {rt.shape[1]} reads "
-                  f"x L {rt.shape[0]}, {hits} valid hits, equal")
-            cells = float(ln.sum()) * float(tabs[4][:A].sum())
-            self.record(f"locate_{mode}", "tpu_orc_torch/csrc/locate.cu",
-                        "tpu_orc/align/pallas_locate.py:205",
-                        max_abs_err(got, want), ms, pms,
-                        nbytes(*tabs, rt, ln, got),
-                        OPS_PER_CELL["locate"] * cells)
+        shapes = (("16,384 reads x L 512", "", *self.reads()),
+                  ("2,048 rRNA reads x L 3,584", "_rrna", *self.rrna_reads()))
+        for label, suffix, masks, lens in shapes:
+            rt = torch.from_numpy(np.ascontiguousarray(masks.T)).cuda()
+            ln = torch.from_numpy(lens).cuda()
+            cases = [(m, b, 3) for m, b in self.banks().items()]
+            cases.append(("back", cases[1][1], 0))
+            for mode, bank, mo in cases:
+                tabs = L.tables_for_bank(bank, mode, mo).tensors("cuda")
+                A = len(bank)
+                got = L.locate_cuda(tabs, rt, ln, mode, A)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = L.locate_plain(tabs, rt, ln, mode, A)
+                torch.cuda.synchronize()
+                pms = (time.perf_counter() - t0) * 1e3
+                if not torch.equal(got, want):
+                    bad = [k for k in range(8) if not torch.equal(got[k],
+                                                                  want[k])]
+                    raise AssertionError(f"locate {mode} at min_overlap {mo}"
+                                         f", {label}: outputs {bad} differ")
+                hits = int(got[4].sum())
+                ms = cuda_ms(lambda: L.locate_cuda(tabs, rt, ln, mode, A))
+                if not suffix:
+                    pms = cuda_ms(lambda: L.locate_plain(tabs, rt, ln, mode,
+                                                         A))
+                print(f"   locate {mode}, min_overlap {mo}: {A} adapters x "
+                      f"{label}, {int((ln == 0).sum())} empty, {hits} valid "
+                      f"hits, equal to plain; kernel {ms:.3f} ms, plain "
+                      f"{pms:.3f} ms", flush=True)
+                cells = float(ln.sum()) * float(tabs[4][:A].sum())
+                if mo == 3:
+                    self.record(f"locate_{mode}{suffix}", "tpu_orc_torch/csrc/locate.cu",
+                                "tpu_orc/align/pallas_locate.py:205",
+                                max_abs_err(got, want), ms, pms,
+                                nbytes(*tabs, rt, ln, got),
+                                OPS_PER_CELL["locate"] * cells)
 
     # -- phase 3 ---------------------------------------------------------
     def myers_case(self, label, u, mode="NW", tiles=None, plain_reps=5):
@@ -744,14 +779,9 @@ class Smoke:
     def locate_ks(self):
         import numpy as np
         torch = self.torch
-        from tpu_orc_torch import synthetic
         from tpu_orc_torch.align import locate as L
-        _, recs, _ = self.rrna_plate()
-        rmasks, rlens = synthetic.read_masks(
-            [r.seq[:3584] for r in recs[:2048]], 3584)
-        rlens[::97] = 0                      # some empty reads
         shapes = (("16,384 reads x L 512", *self.reads()),
-                  ("2,048 rRNA reads x L 3,584", rmasks, rlens))
+                  ("2,048 rRNA reads x L 3,584", *self.rrna_reads()))
         for label, masks, lens in shapes:
             rt = torch.from_numpy(np.ascontiguousarray(masks.T)).cuda()
             ln = torch.from_numpy(lens).cuda()
@@ -805,35 +835,47 @@ class Smoke:
             lens[i] = len(c)
         lens[5] = 0                          # an empty sequence
         profs = default_euk_profiles()
-        K = 1800
-        rand = H.ProfileHMM("random_1800", rng.normal(0.0, 1.0, (K, 4)),
-                            rng.normal(-2.0, 1.0, (K, 7)))
+        rand = [H.ProfileHMM(f"random_{K}", rng.normal(0.0, 1.0, (K, 4)),
+                             rng.normal(-2.0, 1.0, (K, 7)))
+                for K in (1800, H.MAX_WARP_NODES)]
         put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
-        for p in (profs["18S"], _reverse_profile(profs["28S"]), rand):
+        bits = lambda x: x.view(torch.int32)
+        for p in (profs["18S"], _reverse_profile(profs["28S"]), *rand):
             args = (put(np.asarray(p.match_scores, np.float32)),
                     put(np.asarray(p.t, np.float32)), put(H.dd_prefix(p.t)),
                     put(seqs), put(lens))
-            got = H.viterbi_cuda(*args)
+            designs = [d for d in H.DESIGNS
+                       if d == "block" or p.K <= H.MAX_WARP_NODES]
+            got = {d: H.viterbi_cuda(*args, design=d) for d in designs}
             want = H.viterbi_plain(*args)
             torch.cuda.synchronize()
-            bits = lambda x: x.view(torch.int32)
-            for name, g, w in zip(("score", "pos", "node"), got, want):
-                if not torch.equal(bits(g), bits(w)):
-                    raise AssertionError(f"viterbi {p.name}: {name} differs")
-            err = max(float((got[0] - want[0]).abs().max()),
-                      max_abs_err(got[1], want[1]),
-                      max_abs_err(got[2], want[2]))
-            ms = cuda_ms(lambda: H.viterbi_cuda(*args))
+            for d, g in got.items():
+                for name, x, w, y in zip(("score", "pos", "node"), g, want,
+                                         got["block"]):
+                    if not torch.equal(bits(x), bits(w)):
+                        raise AssertionError(f"viterbi {p.name}, {d} design:"
+                                             f" {name} differs from plain")
+                    if not torch.equal(bits(x), bits(y)):
+                        raise AssertionError(f"viterbi {p.name}: {name} "
+                                             f"differs between the designs")
+            chosen = H.choose_viterbi_design(p.K)
+            g = got[chosen]
+            err = max(float((g[0] - want[0]).abs().max()),
+                      max_abs_err(g[1], want[1]), max_abs_err(g[2], want[2]))
+            ms = {d: cuda_ms(lambda d=d: H.viterbi_cuda(*args, design=d))
+                  for d in designs}
             pms = cuda_ms(lambda: H.viterbi_plain(*args), reps=3)
             print(f"   viterbi {p.name} (K {p.K}), 8 x 3,584: score bits, "
-                  f"position and node equal; best scores "
-                  f"{[round(float(x), 2) for x in got[0][:3]]}; kernel "
-                  f"{ms:.3f} ms, plain {pms:.3f} ms")
+                  f"position and node equal to plain"
+                  f"{' and between the designs' if len(designs) > 1 else ''}"
+                  f"; best scores {[round(float(x), 2) for x in g[0][:3]]}; "
+                  + ", ".join(f"{d} design {t:.3f} ms" for d, t in ms.items())
+                  + f" (the wrapper's choice: {chosen}), plain {pms:.3f} ms")
             if p is profs["18S"]:            # the default path's profile
                 n_ops = OPS_PER_CELL["viterbi"] * float(lens.sum()) * p.K
                 self.record("viterbi", "tpu_orc_torch/csrc/viterbi.cu",
-                            "tpu_orc/rrna/hmm.py:170", err, ms, pms,
-                            nbytes(*args, *got), n_ops, FP32_OPS_PER_S)
+                            "tpu_orc/rrna/hmm.py:170", err, ms[chosen], pms,
+                            nbytes(*args, *g), n_ops, FP32_OPS_PER_S)
 
     # -- phase 10 --------------------------------------------------------
     def rrna_path(self):
@@ -850,18 +892,19 @@ class Smoke:
             L.LOCATE_IMPL = "wf"
         self.launches({f"locate_ks_{m}": counts[f"locate_ks_{m}"]
                        for m in ("front", "back", "infix")})
-        self.launches({"viterbi": counts["viterbi_scan"]})
+        self.launches({"viterbi": counts["viterbi_scan_warp"]
+                       + counts["viterbi_scan_block"]})
         self.launches({f"{k}_rrna": n
                        for k, n in myers_launches(counts).items()})
         assert rep["demux"]["bins"] == 96, rep["demux"]
         zero = [k for k in ("locate_ks_front", "locate_ks_back",
-                            "locate_ks_infix", "viterbi_scan",
+                            "locate_ks_infix", "viterbi_scan_warp",
                             "myers_dense_warp", "myers_pairs_warp")
                 if counts[k] == 0]
         assert not zero, f"kernels not launched during run_all: {zero}"
-        thread = [k for k in ("myers_dense_thread", "myers_pairs_thread")
-                  if counts[k]]
-        assert not thread, f"Myers launches off the warp design: {thread}"
+        off = [k for k in ("myers_dense_thread", "myers_pairs_thread",
+                           "viterbi_scan_block") if counts[k]]
+        assert not off, f"Myers or Viterbi launches off the warp design: {off}"
         wf = [k for k in ("locate_front", "locate_back", "locate_infix")
               if counts[k]]
         assert not wf, f"wavefront locate launched under ks: {wf}"
@@ -880,9 +923,21 @@ class Smoke:
         import shutil
         shutil.rmtree(wout, ignore_errors=True)
         cfg = PipelineConfig(self.adapters, device="cuda")
+        L.LAUNCHES.reset()
+        t0 = time.perf_counter()
         stage_reorient(fq, wout, "plate", cfg)
+        t1 = time.perf_counter()
         stage_demux(os.path.join(wout, "pychopped", "plate_pass.fastq"),
                     wout, "plate", cfg)
+        t2 = time.perf_counter()
+        wfc = L.LAUNCHES.snapshot()
+        print(f"   stages 01-02 with the wavefront locate: 01 {t1 - t0:.2f} "
+              f"s, 02 {t2 - t1:.2f} s; launches {wfc}")
+        self.launches({f"locate_{m}_rrna": wfc[m]
+                       for m in ("front", "back", "infix")})
+        zero = [m for m in ("front", "back", "infix") if wfc[m] == 0]
+        assert not zero, f"wavefront locate not launched: {zero}"
+        assert not any(wfc[f"ks_{m}"] for m in ("front", "back", "infix")), wfc
         n = 0
         for sub in ("pychopped", "demuxed"):
             a, b = read_tree(os.path.join(out, sub)), \

@@ -137,8 +137,9 @@ def test_locate_ks_kernel_equals_wf_kernel(cuda):
 
 def test_viterbi_kernel_equals_plain(cuda):
     """Score bits, end position and end node, for profiles of 40 to 4,096
-    nodes (every node-per-thread instantiation), N and pad codes, an
-    empty and a one-code sequence; one counted launch per call."""
+    nodes (every node-per-thread instantiation of the block design, the
+    warp design up to 512), N and pad codes, an empty and a one-code
+    sequence; one counted launch per call, of the chosen design."""
     rng = np.random.default_rng(33)
     seqs = rng.integers(0, 5, (6, 1200)).astype(np.uint8)
     lens = np.array([1200, 1000, 0, 1, 700, 1199], np.int32)
@@ -155,14 +156,131 @@ def test_viterbi_kernel_equals_plain(cuda):
         put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
         args = (put(match.astype(np.float32)), put(t.astype(np.float32)),
                 put(H.dd_prefix(t)), put(s), put(lens))
-        before = H.LAUNCHES.snapshot()["scan"]
+        key = f"scan_{H.choose_viterbi_design(K)}"
+        before = H.LAUNCHES.snapshot()[key]
         got = H.viterbi_tiles(*args)
         want = H.viterbi_plain(*args)
         torch.cuda.synchronize()
-        assert H.LAUNCHES.snapshot()["scan"] == before + 1
+        assert H.LAUNCHES.snapshot()[key] == before + 1
         assert torch.equal(got[0].view(torch.int32),
                            want[0].view(torch.int32)), K
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def viterbi_case(K, kind, device):
+    """(match, trans, S, seqs, lens) tensors on ``device``: a profile of K
+    nodes and 8 sequences of 0, 1, 31, 33, 64, 97, 500 and 1,000 codes
+    with N, a code above 4 and pad. ``kind``: "rand" (a random profile
+    with a planted consensus and some impossible D->D), "tie" (constant
+    emissions and transitions: every cell ties) or "blocks" (a consensus
+    of blocks of 5 nodes and no M->M: the best ties at every position,
+    first reached at a node in a later lane)."""
+    rng = np.random.default_rng(1000 + K)
+    lens = np.array([0, 1, 31, 33, 64, 97, 500, 1000], np.int32)
+    seqs = rng.integers(0, 4, (8, 1003)).astype(np.uint8)
+    seqs[rng.random(seqs.shape) < 0.03] = 4
+    seqs[6, 7] = 200
+    if kind == "rand":
+        cons = rng.integers(0, 4, K)
+        match = rng.normal(-1.0, 0.5, (K, 4))
+        match[np.arange(K), cons] = 1.2
+        t = rng.normal(-2.0, 0.7, (K, 7))
+        t[rng.random(K) < 0.05, 6] = -1e9
+        seqs[7, 100:100 + min(K, 800)] = cons[:800]
+    elif kind == "tie":
+        match, t = np.full((K, 4), 0.5), np.full((K, 7), -1.0)
+    else:
+        cons = (np.arange(K) // 5) % 4
+        match = np.where(cons[:, None] == np.arange(4)[None, :], 1.0, -1.0)
+        t = np.full((K, 7), -2.0)
+        t[:, 0] = -1e9
+        seqs[:, 0] = 3
+    for b, n in enumerate(lens):
+        seqs[b, n:] = 4
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return (put(match.astype(np.float32)), put(t.astype(np.float32)),
+            put(H.dd_prefix(t)), put(seqs), put(lens))
+
+
+@pytest.mark.parametrize("K", [1, 32, 33, 74, 96, 97, 512, 513])
+def test_viterbi_designs_at_lane_boundaries(cuda, K):
+    """Both designs (the warp design up to 512 nodes) equal viterbi_plain
+    and each other, bit for bit in score, end position and end node, at
+    node counts on each side of the warp design's nodes-per-lane steps,
+    on random, all-tie and block-tie profiles; one counted launch per
+    call, under its design."""
+    bits = lambda x: x.view(torch.int32)
+    for kind in ("rand", "tie", "blocks"):
+        args = viterbi_case(K, kind, cuda)
+        want = H.viterbi_plain(*args)
+        for design in H.DESIGNS:
+            if design == "warp" and K > H.MAX_WARP_NODES:
+                continue
+            before = H.LAUNCHES.snapshot()[f"scan_{design}"]
+            got = H.viterbi_cuda(*args, design=design)
+            torch.cuda.synchronize()
+            assert H.LAUNCHES.snapshot()[f"scan_{design}"] == before + 1
+            assert torch.equal(bits(got[0]), bits(want[0])), (kind, design)
+            assert torch.equal(got[1], want[1]), (kind, design)
+            assert torch.equal(got[2], want[2]), (kind, design)
+
+
+def locate_boundary_case(kind, mode, min_overlap, device):
+    """(tables, reads_T, lens, A) for the wavefront kernel's lane
+    boundaries. ``kind`` names the adapters: "m31", "m32", "m63", "m64"
+    (one adapter of that length beside a 10 bp one; rows m / K on each
+    side of a lane edge), "r128" (64, 90 and 127 bp: R 128, K 4) or
+    "repeated" (three equal 30 bp adapters of a repeated motif and its
+    20 bp prefix: ties between adapters, columns and rows). Reads of 0,
+    1, 31, 32, 33, 63, 64, 65, 97 and 301 codes and random lengths, N in
+    them, (partial) adapters planted at their ends and inside."""
+    rng = np.random.default_rng(sum(map(ord, kind + mode)) + min_overlap)
+    if kind == "repeated":
+        refs = ["ACGTTGCAAC" * 3] * 3 + ["ACGTTGCAAC" * 2]
+    elif kind == "r128":
+        refs = _seqs(rng, 1, 64, 65) + _seqs(rng, 1, 90, 91) \
+            + _seqs(rng, 1, 127, 128)
+    else:
+        n = int(kind[1:])
+        refs = _seqs(rng, 1, n, n + 1) + _seqs(rng, 1, 10, 11)
+    bank = AdapterBank([f"a{k}" for k in range(len(refs))], refs, 0.2, "cpu")
+    tabs = L.BankTables(bank.masks, bank.lens, bank.k_table, bank.n_prefix,
+                        mode == "front", min_overlap)
+    reads = _seqs(rng, 120, 0, 330)
+    for k in range(0, 120, 2):
+        a = refs[k % len(refs)]
+        cut = int(rng.integers(0, len(a)))
+        reads[k] = (a[cut:] + reads[k] if k % 4 else reads[k] + a[:len(a)
+                                                                   - cut])
+    for k in range(1, 120, 6):
+        a = refs[k % len(refs)]
+        reads[k] = reads[k][:40] + a + reads[k][40:80]
+    for k, n in enumerate((0, 1, 31, 32, 33, 63, 64, 65, 97, 301, 0)):
+        reads[120 - 1 - k] = (reads[k] * 2)[:n].ljust(n, "A")
+    masks, lens = synthetic.read_masks(reads, 333)
+    rt = torch.from_numpy(np.ascontiguousarray(masks.T)).to(device)
+    return tabs.tensors(device), rt, torch.from_numpy(lens).to(device), \
+        len(refs)
+
+
+@pytest.mark.parametrize("kind", ["m31", "m32", "m63", "m64", "r128",
+                                  "repeated"])
+@pytest.mark.parametrize("mode", ["front", "back", "infix"])
+def test_locate_wavefront_at_lane_boundaries(cuda, kind, mode):
+    """The wavefront kernel equals locate_plain in all 8 outputs at
+    adapter lengths on each side of a lane edge, at R 128, with tied
+    adapters, at min_overlap 0 (BACK: the empty reads, whose cell (0, 0)
+    the wavefront never evaluates) and 3, and at read lengths around the
+    32-column blocks of its byte loads; one counted launch per call."""
+    for mo in (0, 3):
+        tt, rt, ln, A = locate_boundary_case(kind, mode, mo, cuda)
+        before = L.LAUNCHES.snapshot()[mode]
+        got = L.locate_tiles(tt, rt, ln, mode, A, impl="wf")
+        want = L.locate_plain(tt, rt, ln, mode, A)
+        torch.cuda.synchronize()
+        assert L.LAUNCHES.snapshot()[mode] == before + 1
+        assert int(want[4].sum()) > 10, (kind, mo)
+        assert torch.equal(got, want), (kind, mo)
 
 
 @pytest.mark.parametrize("mode", ["NW", "SHW", "HW"])

@@ -213,3 +213,66 @@ def test_myers_cuda_rejects_unknown_design():
         M.myers_cuda(*up, "NW", design="block")
     assert set(M.LAUNCHES.snapshot()) == {
         "dense_thread", "dense_warp", "pairs_thread", "pairs_warp"}
+
+
+def _peq_case():
+    rng = np.random.default_rng(12)
+    pc, pl = _pack(_seqs(rng, 3, 20, 60))
+    return pc, pl, M._upload(pc, pl, pc, pl, 3, 3, "cpu")
+
+
+@pytest.mark.parametrize("bad", ["two_channels", "n_and_base", "channel_5",
+                                 "channel_7"])
+def test_myers_rejects_peq_row_outside_one_channel(bad):
+    """A Peq row set in two of the channels 0..4, or any bit in the
+    channels 5..7, which the kernel's designs would read differently, is
+    rejected on the host, as numpy and as a CPU tensor."""
+    pc, pl, up = _peq_case()
+    peq = up[0].clone()
+    c0 = int(pc[0, 0])                     # row 0 of pattern 0 sits here
+    ch = {"two_channels": (c0 + 1) % 4, "n_and_base": 4 if c0 < 4 else 0,
+          "channel_5": 5, "channel_7": 7}[bad]
+    peq[0, ch] |= 1
+    with pytest.raises(ValueError, match="channel"):
+        M.check_peq(peq.numpy())
+    with pytest.raises(ValueError, match="channel"):
+        M.myers_tiles(peq, *up[1:], "NW")
+
+
+def test_myers_rejects_text_codes_of_8():
+    """A text code of 8 (which the warp design would read as 0) is
+    rejected where the texts are packed and by myers_tiles; the pad codes
+    5..7 are taken."""
+    pc, pl, up = _peq_case()
+    texts = pc.copy()
+    texts[1, 3] = 8
+    with pytest.raises(ValueError, match="code 8"):
+        M._upload(pc, pl, texts, pl, 3, 3, "cpu")
+    with pytest.raises(ValueError, match="code 8"):
+        M.distances(pc, pl, texts, pl, "NW", device="cpu")
+    tt = up[2].clone()
+    tt[3, 1] = 8
+    with pytest.raises(ValueError, match="code 8"):
+        M.myers_tiles(up[0], up[1], tt, up[3], "HW")
+    for pad in (5, 6, 7):
+        tt[3, 1] = pad
+        M.myers_tiles(up[0], up[1], tt, up[3], "HW")
+
+
+def test_pipeline_inputs_pass_the_checks():
+    """What the pipeline packs passes both checks: build_peq_packed over
+    every byte value as a pattern code (codes >= 5 land in no channel),
+    encoded reads with N and IUPAC letters, and the sorter's and 05a's
+    packing (pad 4, pattern pad m = 1)."""
+    rng = np.random.default_rng(13)
+    codes = rng.integers(0, 256, (5, 200)).astype(np.uint8)
+    M.check_peq(M.build_peq_packed(codes, np.array([200, 150, 1, 64, 63]),
+                                   7))
+    from tpu_orc_torch.cluster.scoring import pack_codes
+    from tpu_orc_torch.io import encode as port_encode
+    reads = [port_encode.encode_codes(s) for s in
+             _seqs(rng, 9, 1, 300, alphabet="ACGTNRYKM",
+                   p=(.2, .2, .2, .2, .08, .03, .03, .03, .03))]
+    packed, lens = pack_codes(reads)
+    d, p = M.distances(packed, lens, packed, lens, "HW", device="cpu")
+    assert d.shape == (9, 9) and (np.diag(d) == 0).all()

@@ -165,3 +165,27 @@ def test_pileup_bits_dispatch_and_checks():
                       nl[:5])
     with pytest.raises(ValueError):
         P.pileup_bits(*(t.to("meta") for t in tensors))
+
+
+def test_pileup_rejects_peq_row_in_two_channels_and_code_8():
+    """pileup_bits shares myers' host checks: a draft's Peq row set in two
+    channels, or a read code of 8, is rejected (the warp kernel would
+    read both differently from the plain version); the path_bits host
+    wrapper rejects a read code of 8 while it packs."""
+    rng = np.random.default_rng(4)
+    draft = rng.integers(0, 4, size=40).astype(np.uint8)
+    reads = mutate_reads(rng, draft, 3)
+    tensors, _ = P._upload([draft], [reads], "cpu")
+    peqs, dwords, tile_gid, texts, nl = tensors
+    bad = peqs.clone()
+    bad[0, (int(draft[0]) + 1) % 4] |= 1
+    with pytest.raises(ValueError, match="channel"):
+        P.pileup_bits(bad, dwords, tile_gid, texts, nl)
+    bad_t = texts.clone()
+    bad_t[2, 0] = 8
+    with pytest.raises(ValueError, match="code 8"):
+        P.pileup_bits(peqs, dwords, tile_gid, bad_t, nl)
+    reads[1] = reads[1].copy()
+    reads[1][5] = 8
+    with pytest.raises(ValueError, match="code 8"):
+        P.path_bits(draft, reads, "cpu")

@@ -174,6 +174,33 @@ def test_viterbi_plain_equals_xla(name):
                                       err_msg=what)
 
 
+@pytest.mark.parametrize("K, want", [
+    (1, "warp"), (32, "warp"), (33, "warp"), (74, "warp"), (75, "warp"),
+    (96, "warp"), (97, "warp"), (512, "warp"), (513, "block"),
+    (1800, "block"), (hmm.MAX_NODES, "block")])
+def test_viterbi_design_choice(K, want):
+    """csrc/viterbi.cu's design by profile length: one warp per sequence up
+    to 512 nodes (16 on each lane; the default profiles have 74 and 75),
+    one block per sequence above (HMMER3 profiles up to MAX_NODES)."""
+    assert hmm.choose_viterbi_design(K) == want
+
+
+def test_viterbi_cuda_rejects_unknown_design():
+    """The forcing keyword takes the two designs only, the warp design
+    stops at 512 nodes, and the launch counter has one key per design."""
+    rng = np.random.default_rng(3)
+    args = [torch.from_numpy(x) for x in (
+        rng.normal(size=(600, 4)).astype(np.float32),
+        rng.normal(size=(600, 7)).astype(np.float32),
+        np.zeros(600, np.float32), np.zeros((2, 5), np.uint8),
+        np.array([5, 3], np.int32))]
+    with pytest.raises(ValueError):
+        hmm.viterbi_cuda(*args, design="thread")
+    with pytest.raises(ValueError):
+        hmm.viterbi_cuda(*args, design="warp")
+    assert set(hmm.LAUNCHES.snapshot()) == {"scan_warp", "scan_block"}
+
+
 def test_viterbi_host_parity():
     """The reference's position-dependent-DD model with deletion runs
     (test_rrna.py): the port's scan equals XLA's bit for bit and

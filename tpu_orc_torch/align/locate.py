@@ -12,7 +12,8 @@ replaces, and the device of its tensors picks the version:
 * 'wf', Pallas ``_kernel_wf`` (:205): a CPU tensor goes to
   :func:`locate_plain`, the anti-diagonal wavefront as torch ops over
   [A, R, B] planes; a CUDA tensor to :func:`locate_cuda`, the
-  hand-written kernel in ``csrc/locate.cu``;
+  hand-written kernel in ``csrc/locate.cu`` (the same wavefront, one warp
+  per (read, adapter) with the rows over the lanes);
 * 'ks', Pallas ``_kernel`` (:55): a CPU tensor goes to
   :func:`locate_plain_ks`, the per-column Kogge-Stone scan as torch ops;
   a CUDA tensor to :func:`locate_cuda_ks` (``csrc/locate_ks.cu``).
@@ -43,6 +44,10 @@ INFIX = Flag.START_WITHIN_SEQ2 | Flag.STOP_WITHIN_SEQ2
 
 BIG = 1 << 28
 MAX_ADAPTER = 127          # DP rows R <= 128 in both kernels
+#: the KS kernel packs origin + 128 into 20 bits of its payload, so its
+#: reads may be up to this many columns; the wavefront kernel keeps
+#: origin in a word of its own
+KS_MAX_COLUMNS = (1 << 20) - 129
 MODES = {"front": 0, "back": 1, "infix": 2}
 #: (kernel source, C entry point) of each implementation
 SOURCES = {"wf": ("locate", "orc_locate"), "ks": ("locate_ks", "orc_locate_ks")}
@@ -537,6 +542,11 @@ def locate_tiles(tables, reads_T: torch.Tensor, lens: torch.Tensor,
         raise ValueError(f"no locate kernel for device {reads_T.device}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("locate kernel inputs must be contiguous")
+    if R not in (64, 128):
+        raise ValueError(f"the locate kernels take R 64 or 128 rows, not {R}")
+    if impl == "ks" and L > KS_MAX_COLUMNS:
+        raise ValueError(f"reads of {L} columns: the KS kernel takes up to "
+                         f"{KS_MAX_COLUMNS}")
     return kernel(tables, reads_T, lens, mode, A)
 
 

@@ -80,6 +80,36 @@ def build_peq_packed(codes: np.ndarray, m_lens: np.ndarray,
     return out
 
 
+def check_peq(peq: np.ndarray) -> None:
+    """Reject a packed Peq [rows, W*NCHAN] (uint32 or int32 bits) that the
+    kernel's designs would read differently: a pattern row set in more
+    than one of the channels 0..4, or any bit in the channels 5..7. The
+    thread design looks a text code up in channels 0..4, the warp designs
+    (and the pileup kernel's) in four bit-planes that equal that lookup
+    only when each row sits in at most one channel, and the plain version
+    in all eight. :func:`build_peq_packed` puts each row in at most one of
+    the channels 0..4 (rows past the pattern in none)."""
+    x = np.asarray(peq).view(np.uint32).reshape(len(peq), -1, NCHAN)
+    if x[:, :, 5:].any():
+        raise ValueError("Peq bits in channels 5..7: the kernel reads "
+                         "channels 0..4 only")
+    seen = x[:, :, 0].copy()
+    for ch in range(1, 5):
+        if (seen & x[:, :, ch]).any():
+            raise ValueError("a Peq row is set in more than one channel")
+        seen |= x[:, :, ch]
+
+
+def check_codes(codes: np.ndarray) -> None:
+    """Reject text codes of 8 or more. Codes 0..4 are bases and N, 5..7
+    match nothing in every version; the warp designs look a code up by its
+    low three bits, so a code of 8 or more would match ``code & 7``."""
+    codes = np.asarray(codes)
+    if codes.size and int(codes.max()) >= NCHAN:
+        raise ValueError(f"text code {int(codes.max())} >= {NCHAN}: codes "
+                         f"are 0..4 (5..7 pad)")
+
+
 def tile_shape(W: int, TI: int | None = None, TJ: int | None = None):
     """(patterns, texts) per listed tile of the pairs entry point.
 
@@ -244,7 +274,11 @@ def myers_tiles(peq, m_lens, texts_T, n_lens, mode: str = "NW",
     m_lens [P] int32, texts_T [N, T] uint8 codes 0..4 (5 = pad), n_lens
     [T] int32, tile_i/tile_j [G] int32 tile coordinates of TI x TJ
     blocks (P % TI == 0 and T % TJ == 0). A CPU tensor goes to
-    :func:`myers_plain`; a CUDA tensor to the kernel."""
+    :func:`myers_plain`; a CUDA tensor to the kernel. A Peq or codes that
+    :func:`check_peq` or :func:`check_codes` reject raise: CPU tensors are
+    checked here; for CUDA tensors :func:`_upload` checks the codes on the
+    host and builds the Peq valid (checking a CUDA tensor here would cost
+    a copy to the host per launch)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
     if peq.dim() != 2 or peq.dtype != torch.int32 or peq.shape[1] % NCHAN:
@@ -269,6 +303,8 @@ def myers_tiles(peq, m_lens, texts_T, n_lens, mode: str = "NW",
     if peq.shape[1] // NCHAN > MAX_WORDS:
         raise ValueError(f"pattern width over {MAX_WORDS * WORD} bp")
     if peq.device.type == "cpu":
+        check_peq(peq.numpy())
+        check_codes(texts_T.numpy())
         return myers_plain(peq, m_lens, texts_T, n_lens, mode, tile_i,
                            tile_j, TI, TJ)
     if peq.device.type != "cuda":
@@ -282,7 +318,10 @@ def myers_tiles(peq, m_lens, texts_T, n_lens, mode: str = "NW",
 def _upload(patterns_codes, m_lens, texts_codes, n_lens, P: int, T: int,
             device):
     """Pad to [P] patterns / [T] texts (pattern pad m=1, text pad code 5
-    and n=1, as the Pallas wrappers do) and move to ``device``."""
+    and n=1, as the Pallas wrappers do) and move to ``device``. The text
+    codes are checked on the host (:func:`check_codes`) for every device;
+    :func:`build_peq_packed` puts each pattern row in one channel at
+    most."""
     P0 = patterns_codes.shape[0]
     T0 = texts_codes.shape[0]
     W = max(1, -(-int(patterns_codes.shape[1]) // WORD))
@@ -291,6 +330,7 @@ def _upload(patterns_codes, m_lens, texts_codes, n_lens, P: int, T: int,
     peq = np.zeros((P, W * NCHAN), np.uint32)
     peq[:P0] = build_peq_packed(np.asarray(patterns_codes), m_lens, W)
     N = texts_codes.shape[1]
+    check_codes(texts_codes)
     tt = np.full((N, T), 5, np.uint8)
     tt[:, :T0] = np.asarray(texts_codes, np.uint8).T
     nl = np.ones(T, np.int32)

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from .myers import MAX_WORDS, NCHAN, WORD, build_peq_packed
+from .myers import (MAX_WORDS, NCHAN, WORD, build_peq_packed,
+                    check_codes, check_peq)
 
 TR = 8  # reads per tile of one group (csrc/pileup.cu); groups pad to it
 
@@ -192,7 +193,10 @@ def pileup_bits(peqs, dwords, tile_gid, texts_T, n_lens):
     draft's W), dwords [G] int32 (each draft's ceil(len / 32)), tile_gid
     [T / TR] int32 (the group of each tile of TR reads), texts_T [N, T]
     uint8 codes 0..4 (5 = pad), n_lens [T] int32. A CPU tensor goes to
-    :func:`path_bits_plain`; a CUDA tensor to the kernel."""
+    :func:`path_bits_plain`; a CUDA tensor to the kernel. A Peq or codes
+    that ``myers.check_peq`` or ``myers.check_codes`` reject raise: CPU
+    tensors are checked here; for CUDA tensors :func:`_upload` checks the
+    codes on the host and builds the Peq valid."""
     if peqs.dim() != 2 or peqs.dtype != torch.int32 or peqs.shape[1] % NCHAN:
         raise ValueError("peqs must be [G, W*8] int32")
     G, W = peqs.shape[0], peqs.shape[1] // NCHAN
@@ -211,6 +215,8 @@ def pileup_bits(peqs, dwords, tile_gid, texts_T, n_lens):
     if W == 0 or W > MAX_WORDS:
         raise ValueError(f"draft width must be 1..{MAX_WORDS} words")
     if peqs.device.type == "cpu":
+        check_peq(peqs.numpy())
+        check_codes(texts_T.numpy())
         return path_bits_plain(*ts)
     if peqs.device.type != "cuda":
         raise ValueError(f"no pileup kernel for device {peqs.device}")
@@ -226,8 +232,9 @@ def pileup_bits(peqs, dwords, tile_gid, texts_T, n_lens):
 def _upload(drafts_codes, groups_reads, device):
     """The inputs of :func:`pileup_bits` on ``device``: every group padded
     to whole tiles of TR reads (pad reads have length 0), N = the Pallas
-    bucket of the longest read. Returns (tensors, first row of each
-    group)."""
+    bucket of the longest read. The read codes are checked on the host
+    (``myers.check_codes``) for every device. Returns (tensors, first row
+    of each group)."""
     drafts = [np.asarray(d, np.uint8) for d in drafts_codes]
     W = max(1, max(-(-len(d) // WORD) for d in drafts))
     peqs = np.stack([build_peq_packed(d[None, :], np.array([len(d)]), W)[0]
@@ -247,6 +254,7 @@ def _upload(drafts_codes, groups_reads, device):
             tt[:len(r), row + i] = np.asarray(r, np.uint8)
             nl[row + i] = len(r)
         row += nt * TR
+    check_codes(tt)
     dev = torch.device(device)
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     return ((put(peqs.view(np.int32)), put(dwords), put(tile_gid), put(tt),

@@ -10,15 +10,37 @@
 // What bounds it on this card: neither bytes nor operations. A step is
 // ~15 float operations per node and a sequence of ~3,600 positions
 // against a 75-node profile is ~4 MFLOP; the chain of positions (step j
-// needs step j-1) and the block-wide scan and argmax inside each step set
-// the time, so the kernel is latency-bound by design.
+// needs step j-1) and the chain of nodes inside a step (the D->D max)
+// set the time, so the kernel is latency-bound by design. Two designs:
 //
-// Design: one block per sequence. Thread t owns the P consecutive nodes
-// t*P .. t*P+P-1 (P = 1..16, so K up to 4,096 with 256 threads); M and I
-// stay in registers. Emissions, the six transitions used and S (the D->D
-// prefix sums, computed on the host in XLA's order) sit in shared memory,
-// stored [field][p][t] so that a warp reads 32 neighbouring words. Per
-// position:
+// Warp design (K <= 512, every default profile): one warp per sequence,
+// a systolic array over the lanes. Lane l owns the P = ceil(K / 32)
+// consecutive nodes l*P .. l*P+P-1 (P <= 16) with M and I in registers,
+// and at step s it handles position j = s - l. At the top of a step it
+// receives from lane l-1 (__shfl_up_sync), all computed at step s-1:
+//   * v, the running max of entry - S, at node l*P-1 and position j;
+//   * M and I of node l*P-1 at position j, which it keeps for the next
+//     step, where they are position j-1's (the "from" node of its first
+//     node);
+//   * the sequence's code of position j, packed with the lane's code of
+//     a block of 32 positions that the lanes load every 32 steps, from
+//     which lane 0 takes its own (one __shfl_sync).
+// So the D->D chain is a serial max across the lane's P nodes and one
+// hop per lane: no scan, no barrier and no shared-memory hop per
+// position. The tables, staged once in shared memory ([field][p][lane],
+// conflict-free), are copied to registers for P <= 4; emissions are
+// looked up in shared memory by the code. Each lane keeps its own best
+// (strict >, over its positions in order and its nodes in order); a warp
+// reduction at the end orders the lanes' candidates by score, then
+// position, then node, which is the sequential rule's "first position,
+// first node". Lane l idles where j < 1 or j > len.
+//
+// Block design (any K up to 4,096): one block per sequence. Thread t owns
+// the P consecutive nodes t*P .. t*P+P-1 (P = 1..16, so K up to 4,096
+// with 256 threads); M and I stay in registers. Emissions, the six
+// transitions used and S (the D->D prefix sums, computed on the host in
+// XLA's order) sit in shared memory, stored [field][p][t] so that a warp
+// reads 32 neighbouring words. Per position:
 //   * node k-1 of the previous position: the thread's own lower node or,
 //     for its first node, lane l-1's last (__shfl_up_sync) or the last
 //     node of the warp below (shared memory);
@@ -30,16 +52,153 @@
 //   * the block's max and first argmax of Mn, and the best update
 //     (strict >) by thread 0.
 // Positions past the sequence's length change nothing, so the block stops
-// there. Two __syncthreads per position. The step has adds and max only
-// (no multiply to contract into an FMA) and is built without fast-math,
-// so every result is bit-identical to the XLA program.
+// there. Two __syncthreads per position.
+//
+// Both designs do the same float operations as the XLA program in its
+// order; only max, which is exact in any order, is regrouped. The step has
+// adds and max only (no multiply to contract into an FMA) and is built
+// without fast-math, so every result is bit-identical to the XLA program.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #define NEG (-1e9f)
-#define MAXT 256                 // threads per block
+#define MAXT 256                 // threads per block (block design)
 #define FULL 0xffffffffu
+#define NF 13                    // warp design's table fields, below
+
+enum { DESIGN_WARP = 0, DESIGN_BLOCK = 1 };
+
+// Warp design. Table fields of node k, [field][p][lane] in shared memory:
+// emissions of codes 0..4 (4: N / pad, 0), then MM, IM, MD of node k-1
+// (node 0: NEG, NEG, 0, so that its entry is NEG and its from-terms
+// NEG + NEG, as _viterbi_kernel's shift1 pads), MI, II, S, then S and DM
+// of node k-1 (node 0: 0, 0). Nodes k >= K are pads: finite, never a best.
+enum { F_MM = 5, F_IM, F_MD, F_MI, F_II, F_S, F_SP, F_DM };
+
+template <int P>
+__global__ void __launch_bounds__(32)
+viterbi_warp_kernel(const float* __restrict__ ms,      // [K, 4] match log-odds
+                    const float* __restrict__ tr,      // [K, 7] MM MI MD IM II DM DD
+                    const float* __restrict__ S,       // [K] D->D prefix sums
+                    const uint8_t* __restrict__ seqs,  // [B, L] codes, 4 = N / pad
+                    const int* __restrict__ lens,      // [B]
+                    int K, int L,
+                    float* __restrict__ best_out, int* __restrict__ bpos_out,
+                    int* __restrict__ bnode_out)
+{
+  constexpr bool REG = P <= 4;             // transitions in registers
+  __shared__ float s_tab[NF * P * 32];
+  const int lane = threadIdx.x;
+  for (int p = 0; p < P; ++p) {
+    const int k = lane * P + p;
+    const bool in = k < K, pr = in && k > 0;
+    float* t = s_tab + p * 32 + lane;
+    for (int c = 0; c < 4; ++c) t[c * P * 32] = in ? ms[k * 4 + c] : 0.f;
+    t[4 * P * 32] = 0.f;
+    t[F_MM * P * 32] = pr ? tr[(k - 1) * 7 + 0] : NEG;
+    t[F_IM * P * 32] = pr ? tr[(k - 1) * 7 + 3] : NEG;
+    t[F_MD * P * 32] = pr ? tr[(k - 1) * 7 + 2] : 0.f;
+    t[F_MI * P * 32] = in ? tr[k * 7 + 1] : NEG;
+    t[F_II * P * 32] = in ? tr[k * 7 + 4] : NEG;
+    t[F_S * P * 32] = in ? S[k] : 0.f;
+    t[F_SP * P * 32] = pr ? S[k - 1] : 0.f;
+    t[F_DM * P * 32] = pr ? tr[(k - 1) * 7 + 5] : 0.f;
+  }
+  __syncthreads();
+  float tb[NF - F_MM][REG ? P : 1];
+  if constexpr (REG) {
+#pragma unroll
+    for (int f = F_MM; f < NF; ++f)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        tb[f - F_MM][p] = s_tab[(f * P + p) * 32 + lane];
+  }
+  auto T = [&](int f, int p) -> float {
+    if constexpr (REG) return tb[f - F_MM][p];
+    else return s_tab[(f * P + p) * 32 + lane];
+  };
+
+  const int b = blockIdx.x;
+  const int len = lens[b];
+  const uint8_t* seq = seqs + (size_t)b * L;
+  const int last = len + (K + P - 1) / P - 1;   // the last node's lane ends
+  float M[P], I[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    M[p] = NEG;
+    I[p] = NEG;
+  }
+  float vlast = NEG;              // v of this lane's last node, latest step
+  float Mlo = NEG, Ilo = NEG;     // M, I of node lane*P-1, position j-1
+  float lb = NEG;                 // this lane's best, its position and node
+  int lpos = 0, lnode = 0;
+  uint32_t blk = lane < len ? seq[lane] : 4u;
+  uint32_t nblk = 32 + lane < len ? seq[32 + lane] : 4u;
+  uint32_t cur = 4u;              // code of this lane's position
+  for (int s = 1; s <= last; ++s) {
+    const int q = (s - 1) & 31;   // lane 0's code: seq[s - 1]
+    const uint32_t got = __shfl_sync(FULL, cur | (blk << 8), lane ? lane - 1 : q);
+    const float vin = __shfl_up_sync(FULL, vlast, 1);
+    const float Min = __shfl_up_sync(FULL, M[P - 1], 1);
+    const float Iin = __shfl_up_sync(FULL, I[P - 1], 1);
+    if (q == 31) {                // next block of 32 positions
+      blk = nblk;
+      const int jj = s + 32 + lane;
+      nblk = jj < len ? seq[jj] : 4u;
+    }
+    const uint32_t c = min(lane ? got & 0xffu : got >> 8, 4u);
+    const int j = s - lane;
+    if (j >= 1 && j <= len) {
+      float v = lane ? vin : NEG;   // v of node k-1 at position j
+      float Mn[P], In[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float pM = p ? M[p - 1] : Mlo;
+        const float pI = p ? I[p - 1] : Ilo;
+        const float dsh = (v + T(F_SP, p)) + T(F_DM, p);
+        const float ve = (pM + T(F_MD, p)) - T(F_S, p);
+        const float fromM = pM + T(F_MM, p);
+        const float fromI = pI + T(F_IM, p);
+        const float cand = fmaxf(fmaxf(fmaxf(fromM, fromI), 0.f), dsh);
+        Mn[p] = cand + s_tab[(c * P + p) * 32 + lane];
+        In[p] = fmaxf(M[p] + T(F_MI, p), I[p] + T(F_II, p));
+        v = fmaxf(v, ve);
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        M[p] = Mn[p];
+        I[p] = In[p];
+        if (lane * P + p < K && M[p] > lb) {
+          lb = M[p];
+          lpos = j;
+          lnode = lane * P + p;
+        }
+      }
+      vlast = v;
+    }
+    Mlo = lane ? Min : NEG;
+    Ilo = lane ? Iin : NEG;
+    cur = c;
+  }
+  // the lanes' candidates: max score, then first position, then first node
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const float ob = __shfl_xor_sync(FULL, lb, d);
+    const int op = __shfl_xor_sync(FULL, lpos, d);
+    const int on = __shfl_xor_sync(FULL, lnode, d);
+    if (ob > lb || (ob == lb && (op < lpos || (op == lpos && on < lnode)))) {
+      lb = ob;
+      lpos = op;
+      lnode = on;
+    }
+  }
+  if (lane == 0) {
+    best_out[b] = lb;
+    bpos_out[b] = lpos;
+    bnode_out[b] = lnode;
+  }
+}
 
 template <int P>
 __global__ void __launch_bounds__(MAXT)
@@ -230,12 +389,40 @@ static int launch(const void* ms, const void* tr, const void* S,
   return (int)cudaGetLastError();
 }
 
+template <int P>
+static int launch_warp(const void* ms, const void* tr, const void* S,
+                       const void* seqs, const void* lens, int K, int B, int L,
+                       void* best, void* bpos, void* bnode, cudaStream_t stream) {
+  viterbi_warp_kernel<P><<<B, 32, 0, stream>>>(
+      (const float*)ms, (const float*)tr, (const float*)S,
+      (const uint8_t*)seqs, (const int*)lens, K, L, (float*)best,
+      (int*)bpos, (int*)bnode);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int orc_viterbi(const void* ms, const void* tr, const void* S,
                            const void* seqs, const void* lens, int K, int B,
-                           int L, void* best, void* bpos, void* bnode,
-                           void* stream) {
+                           int L, int design, void* best, void* bpos,
+                           void* bnode, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
+  if (design == DESIGN_WARP) {
+#define ORC_VITERBI_WARP(PP)                                              \
+  if (K <= PP * 32)                                                       \
+    return launch_warp<PP>(ms, tr, S, seqs, lens, K, B, L, best, bpos,    \
+                           bnode, s);
+    ORC_VITERBI_WARP(1)
+    ORC_VITERBI_WARP(2)
+    ORC_VITERBI_WARP(3)
+    ORC_VITERBI_WARP(4)
+    ORC_VITERBI_WARP(6)
+    ORC_VITERBI_WARP(8)
+    ORC_VITERBI_WARP(12)
+    ORC_VITERBI_WARP(16)
+#undef ORC_VITERBI_WARP
+    return (int)cudaErrorInvalidValue;
+  }
+  if (design != DESIGN_BLOCK) return (int)cudaErrorInvalidValue;
 #define ORC_VITERBI_CASE(PP)                                              \
   if (K <= PP * MAXT)                                                     \
     return launch<PP>(ms, tr, S, seqs, lens, K, B, L, best, bpos, bnode, s);

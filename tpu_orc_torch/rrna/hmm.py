@@ -11,7 +11,10 @@ its place and dispatches by the device of its tensors:
 * a CPU tensor goes to :func:`viterbi_plain`, the same recurrence as
   torch ops over [B, K] planes, one step per position;
 * a CUDA tensor goes to :func:`viterbi_cuda`, the hand-written kernel in
-  ``csrc/viterbi.cu`` (one block per sequence), or the wrapper raises.
+  ``csrc/viterbi.cu``, or the wrapper raises. The kernel has two designs,
+  one warp per sequence (a systolic array over the lanes, profiles of up
+  to ``MAX_WARP_NODES`` nodes) and one block per sequence (up to
+  ``MAX_NODES``); :func:`choose_viterbi_design` picks one.
 
 Scores are float32 and bit-identical to ``_viterbi_kernel``: every
 version adds in its order, ``(v + S) + DM``, ``shift1(M) + shift1(MM)``,
@@ -212,9 +215,25 @@ def viterbi_host(profile: ProfileHMM, seq_codes: np.ndarray
 # ---------------------------------------------------------------------------
 
 MAX_NODES = 4096   # csrc/viterbi.cu: 16 nodes x 256 threads, shared tables
+#: The warp design takes profiles of up to MAX_WARP_NODES nodes (16 on each
+#: of 32 lanes), the block design everything above. The warp design is the
+#: faster one wherever it fits; chip_smoke.py phase 9, 8 sequences x 3,584
+#: positions, NVIDIA H100 80GB HBM3 at 700 W: warp 0.414 ms vs block 2.306
+#: ms at K 74 (the default 18S profile), warp 1.526 vs block 3.257 ms at
+#: K 512; at K 1,800 (a user's HMMER3 profile size) the block design takes
+#: 4.448 ms.
+MAX_WARP_NODES = 512
+DESIGNS = ("warp", "block")  # index = csrc/viterbi.cu DESIGN_WARP, _BLOCK
 
-#: kernel launches (csrc/viterbi.cu), counted by viterbi_cuda
-LAUNCHES = _build.LaunchCounter(("scan",))
+#: kernel launches by design (csrc/viterbi.cu), "scan_warp" and
+#: "scan_block"; counted by viterbi_cuda
+LAUNCHES = _build.LaunchCounter(tuple(f"scan_{d}" for d in DESIGNS))
+
+
+def choose_viterbi_design(K: int) -> str:
+    """The design of ``csrc/viterbi.cu`` for a profile of ``K`` nodes:
+    "warp" up to :data:`MAX_WARP_NODES`, where it fits, "block" above."""
+    return "warp" if K <= MAX_WARP_NODES else "block"
 
 
 def _blocked_cumsum(x: np.ndarray) -> np.ndarray:
@@ -298,15 +317,24 @@ def viterbi_plain(match_s: torch.Tensor, trans: torch.Tensor,
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _build.load("viterbi", "orc_viterbi",
-                       [vp] * 5 + [ci] * 3 + [vp] * 4).orc_viterbi
+                       [vp] * 5 + [ci] * 4 + [vp] * 4).orc_viterbi
 
 
-def viterbi_cuda(match_s, trans, S, seqs, lens):
+def viterbi_cuda(match_s, trans, S, seqs, lens, design: str | None = None):
     """Launch ``csrc/viterbi.cu`` on the current stream; same contract
     and outputs as :func:`viterbi_plain`. Inputs are checked by
-    :func:`viterbi_tiles`."""
+    :func:`viterbi_tiles`. ``design`` forces "warp" or "block" (the
+    card's tests and ``chip_smoke.py`` compare them); by default
+    :func:`choose_viterbi_design` picks it."""
     B, L = seqs.shape
     K = match_s.shape[0]
+    if design is None:
+        design = choose_viterbi_design(K)
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r} not in {DESIGNS}")
+    if design == "warp" and K > MAX_WARP_NODES:
+        raise ValueError(f"the warp design takes up to {MAX_WARP_NODES} "
+                         f"nodes, not {K}")
     dev = seqs.device
     best = torch.empty(B, dtype=torch.float32, device=dev)
     bpos = torch.empty(B, dtype=torch.int32, device=dev)
@@ -317,10 +345,10 @@ def viterbi_cuda(match_s, trans, S, seqs, lens):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()(match_s.data_ptr(), trans.data_ptr(), S.data_ptr(),
                      seqs.data_ptr(), lens.data_ptr(), K, B, L,
-                     best.data_ptr(), bpos.data_ptr(), bnode.data_ptr(),
-                     stream)
-    _build.check(err, "viterbi kernel")
-    LAUNCHES.add("scan")
+                     DESIGNS.index(design), best.data_ptr(), bpos.data_ptr(),
+                     bnode.data_ptr(), stream)
+    _build.check(err, f"viterbi kernel ({design} design)")
+    LAUNCHES.add(f"scan_{design}")
     return best, bpos, bnode
 
 
