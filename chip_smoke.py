@@ -45,10 +45,14 @@ Phases:
      (ORC_PILEUP_BACKEND=device): both path-bits contracts launched, and
      every consensusfile.fasta and primerless/ file byte-identical to
      phase 6's;
-  8. Kogge-Stone locate kernel vs its plain version, FRONT/BACK/INFIX, at
-     phase 2's reads (16,384 x L 512) and at 2,048 rRNA reads x L 3,584
-     with some empty reads: all 8 outputs equal, and equal to the
-     wavefront kernel's at the pipeline's min_overlap 3;
+  8. Kogge-Stone locate kernel (the KS instances of csrc/locate.cu) vs
+     its plain version, FRONT/BACK/INFIX, at phase 2's reads (16,384 x L
+     512) and at 2,048 rRNA reads x L 3,584 with some empty reads: all 8
+     outputs equal, in the design orc_locate_ks keeps and in both designs
+     (16 and 32 lanes an alignment), each timed, and equal to the
+     wavefront kernel's at the pipeline's min_overlap 3; in BACK at
+     min_overlap 0 equal to plain, and different from the wavefront
+     kernel on exactly the empty reads;
   9. Viterbi kernel vs plain: 8 sequences x 3,584 positions against the
      default 18S profile and the reversed default 28S profile in both
      designs (one warp or one block per sequence), a random 1,800-node
@@ -777,6 +781,12 @@ class Smoke:
 
     # -- phase 8 ---------------------------------------------------------
     def locate_ks(self):
+        """The KS kernel (``orc_locate_ks``) and both of its designs (16
+        and 32 lanes an alignment) against locate_plain_ks, and against
+        the wavefront kernel, in the three modes at min_overlap 3, at phase
+        2's and the rRNA reads' shapes; then BACK at min_overlap 0, where
+        the two contracts differ on exactly the empty reads. Each timed
+        beside the wavefront kernel and the plain version."""
         import numpy as np
         torch = self.torch
         from tpu_orc_torch.align import locate as L
@@ -792,8 +802,12 @@ class Smoke:
                 want = L.locate_plain_ks(tabs, rt, ln, mode, A)
                 wf = L.locate_cuda(tabs, rt, ln, mode, A)
                 torch.cuda.synchronize()
-                for other, what in ((want, "its plain version"),
-                                    (wf, "the wavefront kernel")):
+                others = [(want, "its plain version"),
+                          (wf, "the wavefront kernel")]
+                others += [(L.locate_cuda_ks(tabs, rt, ln, mode, A, lanes=g),
+                            f"the {g}-lane design") for g in L.KS_LANES]
+                torch.cuda.synchronize()
+                for other, what in others:
                     if not torch.equal(got, other):
                         bad = [k for k in range(8)
                                if not torch.equal(got[k], other[k])]
@@ -801,21 +815,45 @@ class Smoke:
                                              f"outputs {bad} differ from "
                                              f"{what}")
                 ms = cuda_ms(lambda: L.locate_cuda_ks(tabs, rt, ln, mode, A))
+                gms = {g: cuda_ms(lambda g=g: L.locate_cuda_ks(
+                    tabs, rt, ln, mode, A, lanes=g)) for g in L.KS_LANES}
                 wms = cuda_ms(lambda: L.locate_cuda(tabs, rt, ln, mode, A))
                 pms = cuda_ms(lambda: L.locate_plain_ks(tabs, rt, ln, mode,
                                                         A), reps=3)
                 print(f"   KS locate {mode}, {label}, {A} adapters: "
-                      f"{int(got[4].sum())} valid hits, equal to plain and "
-                      f"to the wavefront kernel; KS kernel {ms:.3f} ms, "
-                      f"wavefront kernel {wms:.3f} ms, plain {pms:.3f} ms")
+                      f"{int(got[4].sum())} valid hits, equal to plain, to "
+                      f"the wavefront kernel and in both designs; KS kernel "
+                      f"{ms:.3f} ms ("
+                      + ", ".join(f"{g} lanes {t:.3f} ms"
+                                  for g, t in gms.items())
+                      + f"), wavefront kernel {wms:.3f} ms, plain {pms:.3f} "
+                      f"ms", flush=True)
                 if rt.shape[0] == 3584:      # the rRNA path's reads
                     cells = float(ln.sum()) * float(tabs[4][:A].sum())
                     self.record(f"locate_ks_{mode}",
-                                "tpu_orc_torch/csrc/locate_ks.cu",
+                                "tpu_orc_torch/csrc/locate.cu",
                                 "tpu_orc/align/pallas_locate.py:55",
                                 max_abs_err(got, want), ms, pms,
                                 nbytes(*tabs, rt, ln, got),
                                 OPS_PER_CELL["locate"] * cells)
+            # BACK at min_overlap 0: equal to plain in both designs, and
+            # different from the wavefront kernel on the empty reads only
+            tabs = L.tables_for_bank(self.banks()["back"], "back",
+                                     0).tensors("cuda")
+            A = len(self.banks()["back"])
+            want = L.locate_plain_ks(tabs, rt, ln, "back", A)
+            wf = L.locate_cuda(tabs, rt, ln, "back", A)
+            for g in (None, *L.KS_LANES):
+                got = L.locate_cuda_ks(tabs, rt, ln, "back", A, lanes=g)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), \
+                    f"KS locate back at min_overlap 0, {label}, lanes {g}"
+            differ = (got != wf).any(0).any(0).nonzero().flatten().cpu()
+            empty = np.flatnonzero(lens == 0)
+            assert np.array_equal(differ.numpy(), empty), (differ, empty)
+            print(f"   KS locate back, min_overlap 0, {label}: equal to plain"
+                  f" in both designs; differs from the wavefront kernel on "
+                  f"exactly the {len(empty)} empty reads")
 
     # -- phase 9 ---------------------------------------------------------
     def viterbi(self):

@@ -225,15 +225,19 @@ def test_viterbi_designs_at_lane_boundaries(cuda, K):
             assert torch.equal(got[2], want[2]), (kind, design)
 
 
-def locate_boundary_case(kind, mode, min_overlap, device):
-    """(tables, reads_T, lens, A) for the wavefront kernel's lane
-    boundaries. ``kind`` names the adapters: "m31", "m32", "m63", "m64"
-    (one adapter of that length beside a 10 bp one; rows m / K on each
-    side of a lane edge), "r128" (64, 90 and 127 bp: R 128, K 4) or
-    "repeated" (three equal 30 bp adapters of a repeated motif and its
-    20 bp prefix: ties between adapters, columns and rows). Reads of 0,
-    1, 31, 32, 33, 63, 64, 65, 97 and 301 codes and random lengths, N in
-    them, (partial) adapters planted at their ends and inside."""
+def locate_boundary_case(kind, mode, min_overlap, device, n_reads=120,
+                         lengths=(0, 1, 31, 32, 33, 63, 64, 65, 97, 301, 0)):
+    """(tables, reads_T, lens, A) for the locate kernels' lane
+    boundaries. ``kind`` names the adapters: "m15" .. "m64" (one adapter
+    of that length beside a 10 bp one; rows m / K on each side of a lane
+    edge), "r128" (64, 90 and 127 bp: R 128), "repeated" (three equal 30
+    bp adapters of a repeated motif and its 20 bp prefix: ties between
+    adapters, columns and rows) or "pair" (a 32 bp and a 10 bp adapter,
+    and reads 4 and 5, which share a warp of the 16-lane design, of 0 and
+    3,584 codes, the adapter at the long one's end). ``n_reads`` reads:
+    the last ones of the codes ``lengths`` gives, the others of random
+    lengths, N in them, (partial) adapters planted at their ends and
+    inside."""
     rng = np.random.default_rng(sum(map(ord, kind + mode)) + min_overlap)
     if kind == "repeated":
         refs = ["ACGTTGCAAC" * 3] * 3 + ["ACGTTGCAAC" * 2]
@@ -241,23 +245,28 @@ def locate_boundary_case(kind, mode, min_overlap, device):
         refs = _seqs(rng, 1, 64, 65) + _seqs(rng, 1, 90, 91) \
             + _seqs(rng, 1, 127, 128)
     else:
-        n = int(kind[1:])
+        n = 32 if kind == "pair" else int(kind[1:])
         refs = _seqs(rng, 1, n, n + 1) + _seqs(rng, 1, 10, 11)
     bank = AdapterBank([f"a{k}" for k in range(len(refs))], refs, 0.2, "cpu")
     tabs = L.BankTables(bank.masks, bank.lens, bank.k_table, bank.n_prefix,
                         mode == "front", min_overlap)
-    reads = _seqs(rng, 120, 0, 330)
-    for k in range(0, 120, 2):
+    reads = _seqs(rng, n_reads, 0, 330)
+    for k in range(0, n_reads, 2):
         a = refs[k % len(refs)]
         cut = int(rng.integers(0, len(a)))
         reads[k] = (a[cut:] + reads[k] if k % 4 else reads[k] + a[:len(a)
                                                                    - cut])
-    for k in range(1, 120, 6):
+    for k in range(1, n_reads, 6):
         a = refs[k % len(refs)]
         reads[k] = reads[k][:40] + a + reads[k][40:80]
-    for k, n in enumerate((0, 1, 31, 32, 33, 63, 64, 65, 97, 301, 0)):
-        reads[120 - 1 - k] = (reads[k] * 2)[:n].ljust(n, "A")
-    masks, lens = synthetic.read_masks(reads, 333)
+    for k, n in enumerate(lengths):
+        reads[n_reads - 1 - k] = (reads[k] * 2)[:n].ljust(n, "A")
+    L_max = 333
+    if kind == "pair":
+        L_max = 3584
+        reads[4] = ""
+        reads[5] = _seqs(rng, 1, L_max - 32, L_max - 31)[0] + refs[0]
+    masks, lens = synthetic.read_masks(reads, L_max)
     rt = torch.from_numpy(np.ascontiguousarray(masks.T)).to(device)
     return tabs.tensors(device), rt, torch.from_numpy(lens).to(device), \
         len(refs)
@@ -281,6 +290,35 @@ def test_locate_wavefront_at_lane_boundaries(cuda, kind, mode):
         assert L.LAUNCHES.snapshot()[mode] == before + 1
         assert int(want[4].sum()) > 10, (kind, mo)
         assert torch.equal(got, want), (kind, mo)
+
+
+@pytest.mark.parametrize("kind", ["m15", "m16", "m17", "m31", "m32", "m33",
+                                  "r128", "repeated", "pair"])
+@pytest.mark.parametrize("mode", ["front", "back", "infix"])
+def test_locate_ks_at_half_warp_boundaries(cuda, kind, mode):
+    """The KS kernel (``locate_tiles(impl="ks")``) and both of its designs
+    (16 and 32 lanes an alignment) equal locate_plain_ks in all 8
+    outputs at adapter lengths on each side of the 16-lane design's lane
+    edges (K 4 at R 64) and of its half-warp edge, at R 128 (K 8), with
+    tied adapters, on 127 reads (the last warp's second half has none),
+    at read lengths around its 16-column byte blocks, with a 0-column and
+    a 3,584-column read in one warp, and at min_overlap 0 (BACK: the empty
+    reads' row 0 counts) and 3; one counted launch per call."""
+    lengths = (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 97, 301, 0)
+    for mo in (0, 3):
+        tt, rt, ln, A = locate_boundary_case(kind, mode, mo, cuda, 127,
+                                             lengths)
+        want = L.locate_plain_ks(tt, rt, ln, mode, A)
+        assert int(want[4].sum()) > 10, (kind, mo)
+        for lanes in (None, *L.KS_LANES):
+            before = L.LAUNCHES.snapshot()[f"ks_{mode}"]
+            if lanes is None:
+                got = L.locate_tiles(tt, rt, ln, mode, A, impl="ks")
+            else:
+                got = L.locate_cuda_ks(tt, rt, ln, mode, A, lanes=lanes)
+            torch.cuda.synchronize()
+            assert L.LAUNCHES.snapshot()[f"ks_{mode}"] == before + 1
+            assert torch.equal(got, want), (kind, mo, lanes)
 
 
 @pytest.mark.parametrize("mode", ["NW", "SHW", "HW"])

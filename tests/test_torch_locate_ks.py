@@ -9,8 +9,12 @@ shorter than the adapters. At R = 128 rows, where tpu_orc has no kernel,
 it must equal the port's wavefront ``locate_plain``. The two Pallas
 kernels are also held against each other: they agree everywhere except
 BACK with min_overlap 0 on empty reads, where ``_kernel`` counts row 0 of
-column 0 as a candidate and ``_kernel_wf`` does not. Tolerance: none
-(integer equality). Inputs are made with numpy from fixed seeds;
+column 0 as a candidate and ``_kernel_wf`` does not. The "half_warp"
+cases are the edges of the CUDA kernel's 16-lane design: adapters of 15,
+16, 17, 31, 32 and 33 bp, reads of 0, 1, 15-17 and 31-33 columns, and an
+odd count of reads (127). Reads of ``MAX_COLUMNS`` columns or more are
+refused by both implementations, as ``tpu_orc`` refuses them. Tolerance:
+none (integer equality). Inputs are made with numpy from fixed seeds;
 interpret-mode cases stay at 128 reads and L 96.
 """
 import jax.numpy as jnp
@@ -30,6 +34,10 @@ torch.set_num_threads(1)
 FIELDS = ("matches", "errors", "origin", "qstop", "valid", "refstop",
           "nloc", "nacc")
 EMPTY = (0, 41, 77)          # reads made empty (others may be drawn so)
+MODES = ("front", "back", "infix")
+#: the 16-lane design's edges: adapter lengths, and the read lengths
+#: given to the last reads
+HALF_WARP = ((15, 16, 17, 31, 32, 33), (0, 1, 15, 16, 17, 31, 32, 33))
 
 
 def _seq(rng, n, alphabet="ACGT", p=None):
@@ -47,14 +55,20 @@ def _bank(refs):
     return masks, lens
 
 
-def _case(seed, ref_len, read_len, n_reads=128, L_max=96):
+def _case(seed, ref_len, read_len, n_reads=128, L_max=96, exact=None):
     """(adapter strings, read masks [B, L], read lengths [B]): adapters
     with N, reads with N/R/Y codes, planted full and partial adapters,
-    three empty reads and some reads shorter than the adapters."""
+    three empty reads and some reads shorter than the adapters.
+    ``exact`` = (adapter lengths, read lengths): six adapters of those
+    lengths instead of ``ref_len``'s, and the last reads of those
+    lengths, each an adapter's suffix and random bases."""
     rng = np.random.default_rng(seed)
     pn = [0.23, 0.23, 0.23, 0.23, 0.08]
-    refs = [_seq(rng, int(rng.integers(*ref_len)), "ACGTN", pn)
-            for _ in range(6)]
+    if exact is None:
+        refs = [_seq(rng, int(rng.integers(*ref_len)), "ACGTN", pn)
+                for _ in range(6)]
+    else:
+        refs = [_seq(rng, n, "ACGTN", pn) for n in exact[0]]
     pr = [0.22, 0.22, 0.22, 0.22, 0.04, 0.04, 0.04]
     reads = [_seq(rng, int(rng.integers(*read_len)), "ACGTNRY", pr)
              for _ in range(n_reads)]
@@ -67,6 +81,8 @@ def _case(seed, ref_len, read_len, n_reads=128, L_max=96):
     for k in EMPTY:
         if k < n_reads:
             reads[k] = ""
+    for k, n in enumerate(() if exact is None else exact[1]):
+        reads[-1 - k] = (refs[k % 6][k:] + _seq(rng, n, "ACGT"))[:n]
     masks, lens = encode.pack_batch(reads, max_len=L_max, pad_multiple=1,
                                     encoder=encode.encode_read_masks_iupac,
                                     pad_value=0)
@@ -105,12 +121,23 @@ def _assert_equal(got, want):
         np.testing.assert_array_equal(got[k], want[k], err_msg=field)
 
 
-@pytest.mark.parametrize("min_overlap", [0, 1, 3])
-@pytest.mark.parametrize("e", [0.1, 0.2])
-@pytest.mark.parametrize("mode", ["front", "back", "infix"])
-def test_locate_plain_ks_equals_pallas_ks(mode, e, min_overlap):
-    refs, masks, lens = _case(200 + int(e * 10) + min_overlap, (3, 30),
-                              (0, 60))
+KS_CASES = [pytest.param(mode, e, mo, "random", id=f"{mode}-{e}-{mo}")
+            for mode in MODES for e in (0.1, 0.2) for mo in (0, 1, 3)]
+KS_CASES += [pytest.param(mode, 0.2, mo, "half_warp",
+                          id=f"{mode}-half_warp-{mo}")
+             for mode in MODES for mo in (0, 3)]
+
+
+@pytest.mark.parametrize("mode,e,min_overlap,shape", KS_CASES)
+def test_locate_plain_ks_equals_pallas_ks(mode, e, min_overlap, shape):
+    if shape == "random":
+        refs, masks, lens = _case(200 + int(e * 10) + min_overlap, (3, 30),
+                                  (0, 60))
+    else:
+        refs, masks, lens = _case(500 + min_overlap, None, (0, 96),
+                                  n_reads=127, exact=HALF_WARP)
+        assert sorted(map(len, refs)) == list(HALF_WARP[0])
+        assert set(HALF_WARP[1]) <= set(lens.tolist())
     want = _pallas(_tables(ref_pl, refs, e, mode, min_overlap), masks, lens,
                    mode, "ks")
     got = _plain(L.locate_plain_ks, _tables(L, refs, e, mode, min_overlap),
@@ -178,3 +205,36 @@ def test_locate_tiles_picks_the_implementation(monkeypatch):
     monkeypatch.setattr(L, "LOCATE_IMPL", "kogge")
     with pytest.raises(ValueError, match="kogge"):
         tiles()
+
+
+@pytest.mark.parametrize("impl", ["wf", "ks"])
+def test_locate_tiles_refuses_reads_of_max_columns(monkeypatch, impl):
+    """Both implementations refuse reads of ``MAX_COLUMNS`` = 2**20 - 64
+    columns (``tpu_orc``'s ``locate_tiles`` limit) before the CPU/CUDA
+    split, and take one column fewer (the plain version stubbed: its
+    loop would walk a million columns)."""
+    assert L.MAX_COLUMNS == 2 ** 20 - 64
+    refs, _, _ = _case(7, (3, 30), (0, 60))
+    tabs = _tables(L, refs, 0.1, "front", 3).tensors("cpu")
+    called = []
+    stub = lambda *a: called.append(a[1].shape[0])
+    monkeypatch.setitem(L.IMPLS, impl, (stub, stub))
+    lens = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="columns"):
+        L.locate_tiles(tabs, torch.zeros((2 ** 20 - 64, 1), dtype=torch.uint8),
+                       lens, "front", 6, impl=impl)
+    assert called == []
+    L.locate_tiles(tabs, torch.zeros((2 ** 20 - 65, 1), dtype=torch.uint8),
+                   lens, "front", 6, impl=impl)
+    assert called == [2 ** 20 - 65]
+
+
+def test_locate_cuda_ks_rejects_unknown_lanes():
+    """The KS kernel's designs are 16 and 32 lanes an alignment; any
+    other ``lanes`` raises before a launch is tried."""
+    refs, masks, lens = _case(7, (3, 30), (0, 60))
+    tabs = _tables(L, refs, 0.1, "front", 3).tensors("cpu")
+    rt = torch.from_numpy(np.ascontiguousarray(masks.T, np.uint8))
+    with pytest.raises(ValueError, match="lanes 8"):
+        L.locate_cuda_ks(tabs, rt, torch.from_numpy(lens), "front", 6,
+                         lanes=8)

@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_orc_torch")
-SOURCES = ("locate", "locate_ks", "myers", "pileup", "viterbi")
+SOURCES = ("locate", "myers", "pileup", "viterbi")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -91,19 +91,21 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
 def load(name: str, symbol: str, argtypes) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built first if needed) with
     ``symbol``'s argument types declared; its return type is int, the
-    ``cudaError_t`` of the launch."""
-    lib = _libs.get(name)
+    ``cudaError_t`` of the launch. A library may hold several entry
+    points: each (library, symbol) pair gets a handle of its own."""
+    key = f"{name}:{symbol}"
+    lib = _libs.get(key)
     if lib is not None:
         return lib
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
             _finish(name, _start(name))
             lib = ctypes.CDLL(so_path(name))
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[key] = lib
     return lib
 
 

@@ -16,11 +16,15 @@ replaces, and the device of its tensors picks the version:
   per (read, adapter) with the rows over the lanes);
 * 'ks', Pallas ``_kernel`` (:55): a CPU tensor goes to
   :func:`locate_plain_ks`, the per-column Kogge-Stone scan as torch ops;
-  a CUDA tensor to :func:`locate_cuda_ks` (``csrc/locate_ks.cu``).
+  a CUDA tensor to :func:`locate_cuda_ks`, the KS instances of the same
+  ``csrc/locate.cu`` template (the wavefront schedule with ``_kernel``'s
+  contract, two alignments a warp). The kernel is so held against a
+  different algorithm than its own.
 
 A CUDA tensor always reaches a kernel, or the wrapper raises. The two
 contracts differ in one place: BACK with ``min_overlap`` 0 on an empty
-read (:func:`locate_plain_ks`).
+read (:func:`locate_plain_ks`). Both take reads of fewer than
+:data:`MAX_COLUMNS` columns, as ``tpu_orc``'s ``locate_tiles`` does.
 
 Supported modes are FRONT, BACK and INFIX (the demux, primer-clean and
 reorient paths). Other flag sets belong to the XLA ``batched_locate``,
@@ -44,13 +48,19 @@ INFIX = Flag.START_WITHIN_SEQ2 | Flag.STOP_WITHIN_SEQ2
 
 BIG = 1 << 28
 MAX_ADAPTER = 127          # DP rows R <= 128 in both kernels
-#: the KS kernel packs origin + 128 into 20 bits of its payload, so its
-#: reads may be up to this many columns; the wavefront kernel keeps
-#: origin in a word of its own
-KS_MAX_COLUMNS = (1 << 20) - 129
+#: reads must have fewer columns than this, in both implementations:
+#: ``tpu_orc``'s ``locate_tiles`` refuses longer ones for both of its
+#: kernels (``pallas_locate.py:411-413``, where ``_kernel``'s payload
+#: packs origin into 20 bits). The port's kernels keep origin in a word
+#: of its own and keep the limit only to keep the contract.
+MAX_COLUMNS = (1 << 20) - 64
 MODES = {"front": 0, "back": 1, "infix": 2}
 #: (kernel source, C entry point) of each implementation
-SOURCES = {"wf": ("locate", "orc_locate"), "ks": ("locate_ks", "orc_locate_ks")}
+SOURCES = {"wf": ("locate", "orc_locate"), "ks": ("locate", "orc_locate_ks")}
+#: lanes an alignment of the KS kernel's two designs (G in
+#: ``csrc/locate.cu``): ``locate_cuda_ks(lanes=)`` forces one, for the
+#: card's tests and ``chip_smoke.py``, which time both
+KS_LANES = (16, 32)
 
 #: locate implementation: 'wf' (the anti-diagonal wavefront of
 #: ``_kernel_wf``, default) or 'ks' (the per-column Kogge-Stone scan of
@@ -58,8 +68,8 @@ SOURCES = {"wf": ("locate", "orc_locate"), "ks": ("locate_ks", "orc_locate_ks")}
 #: :387-388; read at each call, so tests may set the attribute
 LOCATE_IMPL = os.environ.get("TPU_ORC_LOCATE_IMPL", "wf")
 
-#: kernel launches per mode: 'front'/'back'/'infix' of csrc/locate.cu,
-#: 'ks_front'/'ks_back'/'ks_infix' of csrc/locate_ks.cu
+#: kernel launches per mode: 'front'/'back'/'infix' of orc_locate,
+#: 'ks_front'/'ks_back'/'ks_infix' of orc_locate_ks (both of csrc/locate.cu)
 LAUNCHES = _build.LaunchCounter(tuple(MODES)
                                 + tuple(f"ks_{m}" for m in MODES))
 
@@ -458,26 +468,30 @@ def locate_plain_ks(tables, reads_T: torch.Tensor, lens: torch.Tensor,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _lib(impl: str = "wf"):
+def _lib(impl: str, lanes: int | None = None):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     name, symbol = SOURCES[impl]
-    return getattr(_build.load(name, symbol, [vp] * 7 + [ci] * 4 + [vp, vp]),
-                   symbol)
+    n_int = 4
+    if lanes is not None:                     # the KS entry with a G
+        symbol, n_int = "orc_locate_ks_lanes", 5
+    return getattr(_build.load(name, symbol,
+                               [vp] * 7 + [ci] * n_int + [vp, vp]), symbol)
 
 
 def _launch(impl: str, tables, reads_T: torch.Tensor, lens: torch.Tensor,
-            mode: str, A: int) -> torch.Tensor:
+            mode: str, A: int, lanes: int | None = None) -> torch.Tensor:
     ref, kbyrs, kfin, kconst, mrow = tables
     L, B = reads_T.shape
     out = torch.empty((8, A, B), dtype=torch.int32, device=reads_T.device)
     if B == 0:
         return out                            # nothing to launch
+    extra = () if lanes is None else (lanes,)
     with torch.cuda.device(reads_T.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib(impl)(
+        err = _lib(impl, lanes)(
             reads_T.data_ptr(), lens.data_ptr(), ref.data_ptr(),
             kbyrs.data_ptr(), kfin.data_ptr(), kconst.data_ptr(),
-            mrow.data_ptr(), ref.shape[1], B, A, MODES[mode],
+            mrow.data_ptr(), ref.shape[1], B, A, MODES[mode], *extra,
             out.data_ptr(), stream)
     _build.check(err, f"locate {impl} kernel ({mode})")
     LAUNCHES.add(mode if impl == "wf" else f"ks_{mode}")
@@ -486,18 +500,23 @@ def _launch(impl: str, tables, reads_T: torch.Tensor, lens: torch.Tensor,
 
 def locate_cuda(tables, reads_T: torch.Tensor, lens: torch.Tensor,
                 mode: str, A: int) -> torch.Tensor:
-    """Launch ``csrc/locate.cu`` on the current stream; same contract
-    and output as :func:`locate_plain`. Inputs are checked by
-    :func:`locate_tiles`."""
+    """Launch ``orc_locate`` of ``csrc/locate.cu`` on the current stream;
+    same contract and output as :func:`locate_plain`. Inputs are checked
+    by :func:`locate_tiles`."""
     return _launch("wf", tables, reads_T, lens, mode, A)
 
 
 def locate_cuda_ks(tables, reads_T: torch.Tensor, lens: torch.Tensor,
-                   mode: str, A: int) -> torch.Tensor:
-    """Launch ``csrc/locate_ks.cu`` on the current stream; same contract
-    and output as :func:`locate_plain_ks`. Inputs are checked by
-    :func:`locate_tiles`."""
-    return _launch("ks", tables, reads_T, lens, mode, A)
+                   mode: str, A: int, lanes: int | None = None
+                   ) -> torch.Tensor:
+    """Launch ``orc_locate_ks`` of ``csrc/locate.cu`` on the current
+    stream; same contract and output as :func:`locate_plain_ks`. Inputs
+    are checked by :func:`locate_tiles`. ``lanes`` (one of
+    :data:`KS_LANES`) forces the design of that many lanes an alignment;
+    None runs the one ``orc_locate_ks`` keeps."""
+    if lanes is not None and lanes not in KS_LANES:
+        raise ValueError(f"lanes {lanes} not in {KS_LANES}")
+    return _launch("ks", tables, reads_T, lens, mode, A, lanes)
 
 
 #: (plain version, kernel) of each implementation
@@ -522,6 +541,9 @@ def locate_tiles(tables, reads_T: torch.Tensor, lens: torch.Tensor,
     if reads_T.dim() != 2 or reads_T.dtype != torch.uint8:
         raise ValueError("reads_T must be [L, B] uint8")
     L, B = reads_T.shape
+    if L >= MAX_COLUMNS:
+        raise ValueError(f"reads of {L} columns: the locate takes fewer "
+                         f"than {MAX_COLUMNS}")
     if lens.shape != (B,) or lens.dtype != torch.int32:
         raise ValueError("lens must be [B] int32")
     Ap, R = ref.shape
@@ -544,9 +566,6 @@ def locate_tiles(tables, reads_T: torch.Tensor, lens: torch.Tensor,
         raise ValueError("locate kernel inputs must be contiguous")
     if R not in (64, 128):
         raise ValueError(f"the locate kernels take R 64 or 128 rows, not {R}")
-    if impl == "ks" and L > KS_MAX_COLUMNS:
-        raise ValueError(f"reads of {L} columns: the KS kernel takes up to "
-                         f"{KS_MAX_COLUMNS}")
     return kernel(tables, reads_T, lens, mode, A)
 
 
