@@ -1,8 +1,9 @@
 """GPU smoke run of tpu_orc_torch: build the CUDA kernels, hold each one
 against its plain PyTorch version on the card, then drive the COI main
-path (run_all) on a synthetic 96-bin plate, and the rRNA path with the
-Kogge-Stone locate on a synthetic 96-bin rRNA plate, and check what
-comes out.
+path (run_all) on a synthetic 96-bin plate, the rRNA path with the
+Kogge-Stone locate on a synthetic 96-bin rRNA plate, the batched locate
+through the demux on lengthened banks, a traced run_all and stages
+06-09 through the CLI, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -65,7 +66,26 @@ Phases:
      Viterbi and Myers kernels launched, every Myers and every Viterbi
      launch on the warp design, an 18S and a 28S hit in every bin; then
      stages 01-02 again with the wavefront locate (its launches counted
-     and the stages timed), their files byte-identical to the KS run's.
+     and the stages timed), their files byte-identical to the KS run's;
+ 11. batched locate kernel (csrc/batched.cu) vs plain: every valid flag
+     set at min_overlap 3 and 0 on 2,048 reads x L 512 (a quarter
+     reverse-complemented, some empty, some planted with long-bank
+     adapters) against the SP5 59-mers and a bank of 64-300 bp adapters;
+     all 9 outputs equal, and in BACK refstop >= 256 on the reads planted
+     with the first 260 or 290 bp of the 256 and 300 bp adapters; FRONT
+     and BACK timed. Then stage_demux on 1,000 reads of a plate whose SP5
+     and SP27-rc adapters carry a shared 11 bp head (70 bp), with device
+     cuda and cpu: demuxed/ trees byte-identical, the batched kernel
+     launched, the locate kernels and the fused demux not;
+ 12. cli run-all --trace on phase 6's plate: the files byte-identical to
+     phase 6's, the trace's CUDA kernel events equal to the run's launch
+     counts per kernel family; prints the trace's size, the device's busy
+     share (the union of kernel intervals over the traced window) and the
+     device time per kernel;
+ 13. stages 06-09 through the CLI: extract-max coi on phase 6's tree and
+     ribo on phase 10's, summary on both, blast-top5, reorganise and
+     prep-anchors on small inputs written here; figures only where
+     matplotlib is installed.
 Phase 1 prints each kernel source's ptxas report (registers, stack
 frame). Prints a JSON line of per-kernel numbers, the card line, and last
 the result line. Exits non-zero, printing no result, when any phase fails or
@@ -75,8 +95,11 @@ tolerance of every comparison is zero (integer outputs, and float32
 scores compared bit for bit). A kernel's ``launches`` are counted over
 the run_all of its path (phase 6 for the wavefront locate and Myers,
 phase 7 for the pileup, phase 10 for the KS locate, the Viterbi and the
-rRNA Myers entries), both designs of a kernel together; a Myers or
-Viterbi entry's ``ms`` is the design the wrapper picks.
+rRNA Myers entries), both designs of a kernel together, and over phase
+11's stage_demux for the batched locate (its FRONT and BACK launches,
+given to the entries of both banks); a Myers or Viterbi entry's ``ms``
+is the design the wrapper picks. The batched locate's plain version runs
+once per comparison, timed over that call.
 
 ``bound_ms`` is the least time the card could take for the kernel's work
 at these inputs: the larger of the bytes it must move (each input read
@@ -86,7 +109,9 @@ operations over the int32 issue rate, 132 SMs x 64 lanes x 1.98 GHz =
 GHz; an SM has half as many int32 lanes). Operations are counted from
 this run's data: per DP cell of locate 16 (compares, adds and selects of
 csrc/locate.cu's inner loop; the same count for the KS kernel, which
-computes the same contract), per 32-bit word step of Myers and of the
+computes the same contract, and for the batched locate, counted over
+the cells its threads visit: rows 1..m of each adapter by columns
+1..len of each read), per 32-bit word step of Myers and of the
 pileup 20 (the bit-vector recurrence). The Viterbi's are float32: 15 per
 (position, node) (9 adds and 6 max of _viterbi_kernel's step), over the
 float32 issue rate, 132 x 128 lanes x 1.98 GHz = 3.35e13/s. No single
@@ -644,23 +669,30 @@ class Smoke:
                              for r in recs))
         return fq, len(recs)
 
-    def run_all(self, out, fq, n_reads, amplicon, big, backend="native"):
+    def run_all(self, out, fq, n_reads, amplicon, big, backend="native",
+                trace=None):
         """``cli run-all --device cuda`` in this process with the given
-        consensus pileup backend, every launch counter set to 0 just
-        before; returns (report, launch counts)."""
+        consensus pileup backend (and ``--trace trace`` when given), every
+        launch counter set to 0 just before; returns (report, launch
+        counts). The batched locate must not launch: every bank of the
+        smoke plates is of 59-mers, under the 63 bp of its route."""
         import contextlib
         import io
         import shutil
         from tpu_orc_torch import cli
+        from tpu_orc_torch.align import batched as BL
         from tpu_orc_torch.align import locate as L, myers as M, pileup as P
         from tpu_orc_torch.cluster import consensus
         from tpu_orc_torch.rrna import hmm as H
         shutil.rmtree(out, ignore_errors=True)
         argv = ["run-all", fq, "-o", out, "-n", "plate", "-a", amplicon,
                 "--adapters-dir", self.adapters, "--device", "cuda"]
+        if trace:
+            argv += ["--trace", trace]
         log = io.StringIO()      # the CLI narrates stages, then the report
         counters = {"locate": L.LAUNCHES, "myers": M.LAUNCHES,
-                    "pileup": P.LAUNCHES, "viterbi": H.LAUNCHES}
+                    "pileup": P.LAUNCHES, "viterbi": H.LAUNCHES,
+                    "batched": BL.LAUNCHES}
         saved = consensus.PILEUP_BACKEND
         consensus.PILEUP_BACKEND = backend
         try:
@@ -680,6 +712,9 @@ class Smoke:
               f"process), locate {L.LOCATE_IMPL}, pileup backend {backend}: "
               f"{n_reads} reads, {wall:.1f} s wall")
         print(f"   launch counts during run_all: {counts}")
+        on = {k: n for k, n in counts.items() if k.startswith("batched_")
+              and n}
+        assert not on, f"batched locate launched on 59-mer banks: {on}"
         stages = rep["metrics"]["stages"]
         per_bin = ("03_sort/", "04_clean/", "05_rrna/")
         for st in stages:
@@ -697,11 +732,11 @@ class Smoke:
                       f" s (4 bin workers)")
         return rep, counts
 
-    def coi_run(self, out, backend):
+    def coi_run(self, out, backend, trace=None):
         if not hasattr(self, "fq"):
             self.fq, self.n_reads = self.plate()
         return self.run_all(out, self.fq, self.n_reads, "COI", self.big,
-                            backend)
+                            backend, trace)
 
     def main_path(self):
         from tpu_orc_torch import synthetic
@@ -732,6 +767,8 @@ class Smoke:
         zero = [k for k in names if self.kernels[k]["launches"] == 0]
         assert not zero, f"kernels not launched during run_all: {zero}"
         self.native_out = out
+        self.phase6_counts = counts
+        self.phase6_wall = rep["metrics"]["total_wall_s"]
 
     def device_path(self):
         out = os.path.join(WORK, "plate", "device")
@@ -923,6 +960,7 @@ class Smoke:
                                                    stage_reorient)
         fq, recs, planted = self.rrna_plate()
         out = os.path.join(WORK, "rrna", "ks")
+        self.rrna_out = out
         L.LOCATE_IMPL = "ks"
         try:
             rep, counts = self.run_all(out, fq, len(recs), "RNA", self.rbig)
@@ -987,6 +1025,328 @@ class Smoke:
         print(f"   stages 01-02 with the wavefront locate: {n} files "
               f"byte-identical to the KS run's")
 
+    # -- phase 11 --------------------------------------------------------
+    def batched_reads(self):
+        """2,048 reads x L 512 for the batched locate: COI plate reads,
+        every 8th replaced by 30 random bp and the first 260 or 290 bp of
+        a long-bank adapter (the read ends there: fault 6's case), every
+        8th by the last 260 or 290 bp of one followed by the read, every
+        97th of the rest empty, then every 4th reverse-complemented.
+        Returns (masks, lens, planted) with planted[k] = (adapter, bp) of
+        the prefix-planted reads."""
+        import random
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.io import encode
+        rnd = random.Random(17)
+        rand = lambda n: "".join(rnd.choice("ACGT") for _ in range(n))
+        self.longs = [rand(n) for n in (64, 127, 200, 255, 256, 300)]
+        recs, _ = synthetic.make_plate(30, seed=23, insert_len=330)
+        seqs, planted = [], {}
+        for k in range(2048):
+            s = recs[k].seq[:512]
+            j, cut = k // 8 % 6, (260, 290)[k // 48 % 2]
+            a = self.longs[j]
+            if k % 8 == 0:
+                s = rand(30) + a[:cut]
+                planted[k] = (j, min(cut, len(a)))
+            elif k % 8 == 4:
+                s = (a[-cut:] + s)[:512]
+            elif k % 97 == 5:
+                s = ""
+            if k % 4 == 3:
+                s = encode.revcomp(s)
+            seqs.append(s)
+        masks, lens = synthetic.read_masks(seqs, 512)
+        return masks, lens, planted
+
+    def batched(self):
+        """The batched locate kernel against its plain version on the
+        card (every valid flag set at min_overlap 3 and 0, on the SP5
+        59-mers and on a long bank of 64-300 bp adapters), then
+        stage_demux on lengthened banks on the card and on the CPU."""
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch.align import batched as BL
+        from tpu_orc_torch.align.spec import BACK, FRONT
+        from tpu_orc_torch.demux.adapters import AdapterBank
+        masks, lens, planted = self.batched_reads()
+        sp5 = AdapterBank.from_fasta(
+            os.path.join(self.adapters, "M13_amplicon_indices_forward.fa"),
+            0.1, "cuda")
+        longb = AdapterBank([f"L{len(a)}" for a in self.longs], self.longs,
+                            0.1, "cuda")
+        reads = [torch.from_numpy(x).cuda() for x in (masks, lens)]
+        flag_sets = [f for f in range(16) if not (f & 1 and f & 4)]
+        for label, bank in (("", sp5), ("_long", longb)):
+            tabs = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                    for x in (bank.masks, bank.lens, bank.k_table,
+                              bank.n_prefix)]
+            cells = float(reads[1].sum()) * float(bank.lens.sum())
+            for flags in flag_sets:
+                for mo in (3, 0):
+                    got = BL.batched_locate_cuda(*tabs, *reads, flags, mo)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    want = BL.batched_locate_plain(*tabs, *reads, flags, mo)
+                    torch.cuda.synchronize()
+                    pms = (time.perf_counter() - t0) * 1e3
+                    if not torch.equal(got, want):
+                        bad = [BL.FIELDS[k] for k in range(9)
+                               if not torch.equal(got[k], want[k])]
+                        raise AssertionError(
+                            f"batched locate{label} flags {flags} "
+                            f"min_overlap {mo}: {bad} differ")
+                    if flags == int(BACK) and label:
+                        stop = got[4].cpu().numpy()
+                        for k, (j, bp) in planted.items():
+                            if len(self.longs[j]) >= 256:
+                                assert got[0, k, j] and stop[k, j] >= 256, \
+                                    (k, j, bp, int(stop[k, j]))
+                        print(f"   BACK, long bank: every read planted with "
+                              f"the first 260 or 290 bp of the 256 and 300 "
+                              f"bp adapters gives refstop >= 256")
+                    if mo == 3 and flags in (int(FRONT), int(BACK)):
+                        mode = "front" if flags == int(FRONT) else "back"
+                        ms = cuda_ms(lambda: BL.batched_locate_cuda(
+                            *tabs, *reads, flags, mo))
+                        self.record(f"batched_locate_{mode}{label}",
+                                    "tpu_orc_torch/csrc/batched.cu",
+                                    "tpu_orc/align/batched.py:121",
+                                    max_abs_err(got, want), ms, pms,
+                                    nbytes(*tabs, *reads, got),
+                                    OPS_PER_CELL["locate"] * cells)
+            print(f"   batched locate{label or ' (SP5 59-mers)'}: "
+                  f"{len(bank)} adapters of {int(bank.lens.min())}-"
+                  f"{int(bank.lens.max())} bp x 2,048 reads x L 512 "
+                  f"({int((reads[1] == 0).sum())} empty): all 9 fields "
+                  f"equal to plain for {len(flag_sets)} flag sets at "
+                  f"min_overlap 3 and 0", flush=True)
+        self.demux_long()
+
+    def demux_long(self):
+        """stage_demux on 1,000 reads of a plate whose SP5 and SP27-rc
+        adapters carry a shared 11 bp head (70 bp: the batched locate's
+        route), on the card and on the CPU: the same files, the batched
+        kernel launched, the wavefront locate and the fused demux not."""
+        import shutil
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.align import batched as BL
+        from tpu_orc_torch.align import locate as L
+        from tpu_orc_torch.demux import demux as D
+        from tpu_orc_torch.demux.adapters import AdapterBank
+        from tpu_orc_torch.pipeline.stages import PipelineConfig, stage_demux
+        adir = synthetic.write_adapter_dir(
+            os.path.join(WORK, "adapters_long"), head=11)
+        recs, _ = synthetic.make_plate(50, n5=5, n27=4, seed=19,
+                                       insert_len=180, head=11)
+        fq = os.path.join(WORK, "plate_long.fastq")
+        with open(fq, "w") as fh:
+            fh.write("".join(f"@{r.desc}\n{r.seq}\n+\n{r.qual}\n"
+                             for r in recs))
+        cfg = PipelineConfig(adir, device="cuda")
+        banks = [AdapterBank.from_fasta(p, 0.1, "cuda")
+                 for p in (cfg.sp5_fasta, cfg.sp27rc_fasta)]
+        assert not D._use_fused(*banks), "fused demux on 70 bp banks"
+        trees = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(WORK, "demux_long", dev)
+            shutil.rmtree(out, ignore_errors=True)
+            L.LAUNCHES.reset()
+            BL.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            rep = stage_demux(fq, out, "long",
+                              PipelineConfig(adir, device=dev))
+            wall = time.perf_counter() - t0
+            counts = {"locate": L.LAUNCHES.snapshot(),
+                      "batched": BL.LAUNCHES.snapshot()}
+            trees[dev] = read_tree(os.path.join(out, "demuxed"))
+            print(f"   stage_demux, {len(recs)} reads, 70 bp banks, device "
+                  f"{dev}: {wall:.1f} s, {len(rep['final_bins'])} bins, "
+                  f"{sum(rep['final_bins'].values())} binned reads; "
+                  f"launches {counts}", flush=True)
+            if dev == "cuda":
+                cuda_counts = counts
+                assert len(rep["final_bins"]) == 20, rep["final_bins"]
+        on = {k: n for k, n in cuda_counts["locate"].items() if n}
+        assert not on, f"locate kernels launched on 70 bp banks: {on}"
+        bc = cuda_counts["batched"]
+        assert bc["front"] and bc["back"], bc
+        for label in ("", "_long"):
+            self.launches({f"batched_locate_{m}{label}": bc[m]
+                           for m in ("front", "back")})
+        a, b = trees["cuda"], trees["cpu"]
+        assert sorted(a) == sorted(b), "demuxed/ trees differ"
+        for rel in a:
+            assert a[rel] == b[rel], f"demuxed/{rel} differs"
+        print(f"   {len(a)} demuxed/ files byte-identical on the card and "
+              f"on the CPU")
+
+    # -- phase 12 --------------------------------------------------------
+    def traced(self):
+        """``run-all --trace`` on phase 6's COI plate: the same files as
+        phase 6, and a trace whose CUDA kernel events are the run's
+        launches, family by family; prints the device's busy share and
+        the device time per kernel."""
+        import glob
+        import gzip
+        import shutil
+        out = os.path.join(WORK, "plate", "traced")
+        tdir = os.path.join(WORK, "trace")
+        shutil.rmtree(tdir, ignore_errors=True)
+        rep, counts = self.coi_run(out, "native", trace=tdir)
+        files = glob.glob(os.path.join(tdir, "*.pt.trace.json.gz"))
+        assert len(files) == 1, files
+        size = os.path.getsize(files[0])
+        with gzip.open(files[0], "rt") as fh:
+            events = json.load(fh)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        fam = trace_families(kern)
+        counted = {
+            "locate_kernel (wavefront)": sum(
+                counts[f"locate_{m}"] for m in ("front", "back", "infix")),
+            "myers_kernel": counts["myers_dense_thread"]
+            + counts["myers_pairs_thread"],
+            "myers_warp_kernel": counts["myers_dense_warp"]
+            + counts["myers_pairs_warp"]}
+        for name, n in counted.items():
+            assert fam.get(name, 0) == n, \
+                f"{name}: {fam.get(name, 0)} events in the trace, {n} launches"
+        launched = [k for k, n in self.phase6_counts.items() if n]
+        assert all(counts[k] == self.phase6_counts[k] for k in launched), \
+            (counts, self.phase6_counts)
+        ts = [e["ts"] for e in events if "ts" in e and e.get("ph") == "X"]
+        te = [e["ts"] + e.get("dur", 0) for e in events
+              if "ts" in e and e.get("ph") == "X"]
+        window = max(te) - min(ts)
+        busy = union_us(kern)
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+        per = {}
+        for e in kern:
+            k = trace_family(e["name"])
+            per[k] = per.get(k, 0.0) + e["dur"]
+        print(f"   trace {os.path.basename(files[0])}: {size} bytes gzipped, "
+              f"{len(events)} events, {len(kern)} kernel events; every "
+              f"kernel family of the run found, events = launches: "
+              f"{counted}")
+        print(f"   device busy share (union of kernel intervals over the "
+              f"traced window): {busy / 1e3:.3f} ms of {window / 1e6:.3f} s"
+              f" = {100 * busy / window:.4f}%; with copies "
+              f"{100 * union_us(kern + copies) / window:.4f}%")
+        print(f"   device time per kernel, ms: " + "; ".join(
+            f"{k} {v / 1e3:.3f} ({fam[k]} launches)"
+            for k, v in sorted(per.items(), key=lambda x: -x[1])))
+        print(f"   run_all walls, traced: {rep['metrics']['total_wall_s']} s"
+              f" of stage time (phase 6: {self.phase6_wall} s)")
+        a, b = read_tree(self.native_out), read_tree(out)
+        skip = ("metrics.json", "run_report.json")
+        a = {k: v for k, v in a.items() if k not in skip}
+        b = {k: v for k, v in b.items() if k not in skip}
+        assert sorted(a) == sorted(b), "traced run_all tree differs"
+        for rel in a:
+            assert a[rel] == b[rel], f"{rel} differs with --trace"
+        print(f"   {len(a)} files byte-identical to phase 6's (all but "
+              f"metrics.json and run_report.json)")
+
+    # -- phase 13 --------------------------------------------------------
+    def downstream(self):
+        """Stages 06-09 through the CLI on the plates' trees and on small
+        inputs written here; each JSON line printed and checked."""
+        import contextlib
+        import importlib.util
+        import io
+        from tpu_orc_torch import cli
+
+        def run(*argv):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                assert cli.main(list(argv)) == 0, argv
+            line = log.getvalue().strip().splitlines()[-1]
+            print(f"   cli {argv[0]}: {line}")
+            return json.loads(line)
+
+        d = os.path.join(WORK, "downstream")
+        os.makedirs(d, exist_ok=True)
+        coi = self.native_out
+        got = run("extract-max", "coi", os.path.join(coi, "COI_gene"), "-o",
+                  os.path.join(d, "coi_max"))
+        with open(os.path.join(d, "coi_max", "coi_extraction_log.tsv")) as fh:
+            logged = fh.read().count("_COI.fasta")
+        # the plate's ~450 bp contigs fall in the discarded 350-599 band
+        assert logged == 96 and got == {"moorea": 0, "sauron": 0}, \
+            (logged, got)
+        got = run("extract-max", "ribo", os.path.join(self.rrna_out,
+                                                      "rRNA_genes"),
+                  "-o", os.path.join(d, "ribo_max"))
+        assert got == {"18S": 96, "28S": 96}, got
+        for tree in (coi, self.rrna_out):
+            got = run("summary", os.path.join(tree, "sorted"), "-o",
+                      os.path.join(d, f"{os.path.basename(tree)}.tsv"))
+            assert got == {"rows": 96, "found": 96}, got
+        tsv = os.path.join(d, "blast.tsv")
+        with open(tsv, "w") as fh:
+            fh.write("".join(f"q{q}\t500\ts{i}\t{10.0 ** -i}\t50\t98\t1\n"
+                             for q in range(3) for i in range(8)))
+        got = run("blast-top5", tsv, "-o", os.path.join(d, "top5.tsv"))
+        assert got == {"kept": 15}, got
+        with open(os.path.join(d, "curated.csv"), "w") as fh:
+            fh.write("sample,fasta_header,barcode,expected_taxon,name\n"
+                     "SP27_001_SP5_001_plate,SP27_001_SP5_001_group1,COI,"
+                     "Mollusca,snailA\n")
+        fa = os.path.join(d, "coi.fa")
+        with open(fa, "w") as fh:
+            fh.write(">consensus_SP27_001_SP5_001_group1\nACGTACGT\n")
+        got = run("reorganise", os.path.join(d, "curated.csv"), "--coi", fa,
+                  "--r18s", fa + ".none", "--r28s", fa + ".none", "-o", d)
+        assert got == {"Mollusca/COI": 1}, got
+        with open(os.path.join(d, "aligned.fa"), "w") as fh:
+            fh.write(">s1|x\nACGT\n>anch 1\nACGT\n")
+        with open(os.path.join(d, "samples.fa"), "w") as fh:
+            fh.write(">s1|x\nACGT\n")
+        got = run("prep-anchors", os.path.join(d, "aligned.fa"),
+                  os.path.join(d, "samples.fa"), "-g", "COI", "-o",
+                  os.path.join(d, "anchors"))
+        with open(got["metadata"]) as fh:
+            meta = fh.read()
+        assert "s1_x,sample" in meta and "anch_1,anchor" in meta, meta
+        if importlib.util.find_spec("matplotlib") is None:
+            print("   cli figures: not run, this host has no matplotlib "
+                  "(the figures are tested on the CPU)")
+        else:
+            run("figures", "-o", os.path.join(d, "figs"), "--blast-csv",
+                os.path.join(d, "curated.csv"))
+
+
+def trace_family(name: str) -> str:
+    """Kernel family of a trace event's name: the function name without
+    its template arguments, the locate template split by contract."""
+    base = name.split("(")[0].split("<")[0].replace("void ", "").strip()
+    if base == "locate_kernel":
+        ks = name.split("(")[0].rstrip(" >").endswith("true")
+        return f"locate_kernel ({'KS' if ks else 'wavefront'})"
+    return base
+
+
+def trace_families(kernels):
+    """{family: event count} of a trace's kernel events."""
+    out = {}
+    for e in kernels:
+        k = trace_family(e["name"])
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+def union_us(events) -> float:
+    """Length of the union of the events' [ts, ts + dur) intervals."""
+    total, end = 0.0, None
+    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
 
 def main() -> int:
     import torch
@@ -1017,6 +1377,15 @@ def main() -> int:
     s.phase("8 KS locate kernel vs plain", s.locate_ks)
     s.phase("9 Viterbi kernel vs plain", s.viterbi)
     s.phase("10 run_all RNA plate with the KS locate", s.rrna_path)
+    s.phase("11 batched locate kernel vs plain, and stage_demux on 70 bp "
+            "banks", s.batched)
+    if "6 run_all COI main path" not in s.failed:
+        s.phase("12 run-all --trace on the COI plate", s.traced)
+    if not {"6 run_all COI main path",
+            "10 run_all RNA plate with the KS locate"} & set(s.failed):
+        s.phase("13 stages 06-09 through the CLI", s.downstream)
+    else:
+        s.failed.append("13 stages 06-09 through the CLI (not run)")
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"chip_smoke: failed phases: {s.failed}", file=sys.stderr)

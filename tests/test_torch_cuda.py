@@ -19,10 +19,13 @@ import pytest
 import torch
 
 from tpu_orc_torch import synthetic
+from tpu_orc_torch.align import batched as BL
 from tpu_orc_torch.align import locate as L
 from tpu_orc_torch.align import myers as M
 from tpu_orc_torch.align import pileup as P
+from tpu_orc_torch.align.spec import BACK
 from tpu_orc_torch.demux import fused
+from tpu_orc_torch.demux import demux as D
 from tpu_orc_torch.demux.adapters import AdapterBank
 from tpu_orc_torch.io import encode
 from tpu_orc_torch.rrna import hmm as H
@@ -483,3 +486,81 @@ def test_fused_kernel_path_equals_plain_path(cuda, tmp_path):
     for name, g, w in zip(want._fields, got, want):
         np.testing.assert_array_equal(g, w, err_msg=name)
     assert (got.idx2 >= 0).sum() > 0.9 * len(recs)
+
+
+BATCHED_FLAGS = [f for f in range(16) if not (f & 1 and f & 4)]
+
+
+def _batched_case(rng, lo, hi):
+    """A bank of 5 adapters of lo..hi bp (N wildcards included) and 300
+    reads up to 400 bp: random, empty, and planted with prefixes and
+    suffixes of the adapters."""
+    refs = _seqs(rng, 5, lo, hi + 1, p=(.24, .24, .24, .24, .04))
+    bank = AdapterBank([f"a{k}" for k in range(5)], refs, 0.1)
+    reads = _seqs(rng, 300, 0, 120)
+    for k in range(0, 300, 3):
+        a = refs[k % 5]
+        cut = int(rng.integers(1, len(a) + 1))
+        reads[k] = (reads[k][:30] + a[:cut] if k % 2
+                    else a[-cut:] + reads[k])[:400]
+    reads[7] = reads[8] = ""
+    masks, lens = synthetic.read_masks(reads, 400)
+    return bank, masks, lens
+
+
+@pytest.mark.parametrize("flags", BATCHED_FLAGS)
+def test_batched_kernel_equals_plain(cuda, flags, monkeypatch):
+    """All 9 outputs at min_overlap 3 and 0, adapters of 3-60 and of
+    250-300 bp (rows past 255), empty and N-bearing reads, in one launch
+    and in launches of 7 reads (a scratch of 7 reads)."""
+    rng = np.random.default_rng(40 + flags)
+    for lo, hi in ((3, 60), (250, 300)):
+        bank, masks, lens = _batched_case(rng, lo, hi)
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                for x in (bank.masks, bank.lens, bank.k_table,
+                          bank.n_prefix, masks, lens)]
+        for mo in (3, 0):
+            want = BL.batched_locate_plain(*args, flags, mo)
+            got = BL.batched_locate_cuda(*args, flags, mo)
+            monkeypatch.setattr(BL, "SCRATCH_BYTES",
+                                7 * 12 * bank.masks.shape[1] * 5)
+            chunked = BL.batched_locate_cuda(*args, flags, mo)
+            monkeypatch.undo()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (lo, mo)
+            assert torch.equal(chunked, want), (lo, mo)
+
+
+def test_batched_locate_dispatches_cuda_to_kernel(cuda):
+    rng = np.random.default_rng(3)
+    bank, masks, lens = _batched_case(rng, 64, 80)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in (bank.masks, bank.lens, bank.k_table, bank.n_prefix,
+                      masks, lens)]
+    before = BL.LAUNCHES.snapshot()
+    fwd, rc = BL.batched_locate_with_rc(*args, int(BACK), 3)
+    after = BL.LAUNCHES.snapshot()
+    assert after["back"] == before["back"] + 1
+    assert fwd.valid.device.type == "cuda"
+    cpu = BL.batched_locate_with_rc(*(a.cpu() for a in args), int(BACK), 3)
+    for g, w in zip((fwd, rc), cpu):
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(g, w))
+
+
+def test_demux_routes_long_banks_to_batched_kernel(cuda):
+    """A 70 bp bank takes the batched kernel on CUDA, with the CPU bank's
+    assignments; the locate kernels stay idle."""
+    recs, _ = synthetic.make_plate(6, n5=2, n27=2, seed=4, insert_len=150,
+                                   head=11)
+    b = synthetic.banks(head=11)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sp5 = AdapterBank.from_pairs(b["sp5"], 0.1, dev)
+        L.LAUNCHES.reset()
+        BL.LAUNCHES.reset()
+        got[dev] = D.assign_reads(recs, sp5, "front")
+        if dev == "cuda":
+            assert BL.LAUNCHES.snapshot()["front"] > 0
+            assert not any(L.LAUNCHES.snapshot().values())
+    assert [(a.adapter, a.rc, a.trimmed.seq, a.err) for a in got["cuda"]] \
+        == [(a.adapter, a.rc, a.trimmed.seq, a.err) for a in got["cpu"]]

@@ -201,3 +201,61 @@ def test_port_runs_without_jax():
     assert res["loaded"] == []
     assert res["bins"] == 4 and res["groups"] >= 3 and res["same"]
     assert {"18S": 1, "28S": 1} in res["rrna"]
+
+
+JAX_FREE_MODULES = r"""
+import contextlib, importlib, io, json, os, pkgutil, sys, tempfile
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["tpu_orc"] = None      # and so does any import of tpu_orc
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import tpu_orc_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    tpu_orc_torch.__path__, "tpu_orc_torch."))
+for n in names:
+    importlib.import_module(n)
+from tpu_orc_torch import cli
+from tpu_orc_torch.align import batched
+from tpu_orc_torch.align.tables import make_k_table, make_n_prefix
+from tpu_orc_torch.utils.profiling import device_trace
+rm = np.array([[1, 2, 4, 8, 1, 2]], np.uint8)
+rl = np.array([6], np.int32)
+qm = np.array([[8, 1, 2, 4, 8, 1, 2, 0]], np.uint8)
+ql = np.array([7], np.int32)
+res = batched.batched_locate(rm, rl, make_k_table(0.1, rm, rl),
+                             make_n_prefix(rm), qm, ql, 2)
+tdir = tempfile.mkdtemp()
+with device_trace(tdir):
+    torch.ones(3).sum()
+d = tempfile.mkdtemp()
+tsv = os.path.join(d, "b.tsv")
+with open(tsv, "w") as fh:
+    fh.write("q\t1\ts\t1e-5\t1\t1\t1\n")
+with contextlib.redirect_stdout(io.StringIO()) as log:
+    cli.main(["blast-top5", tsv, "-o", os.path.join(d, "o.tsv")])
+print(json.dumps({"modules": len(names),
+                  "valid": int(res.valid[0, 0]),
+                  "refstop": int(res.refstop[0, 0]),
+                  "trace": len(os.listdir(tdir)),
+                  "cli": json.loads(log.getvalue().splitlines()[-1]),
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in ("jax", "tpu_orc")
+                                   and sys.modules[m] is not None)}))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    """Every module of the port, the batched locate, ``device_trace``
+    and the stage 06-09 CLI in a fresh interpreter where neither
+    ``import jax`` nor ``import tpu_orc`` works."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", JAX_FREE_MODULES], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["modules"] >= 45
+    assert res["valid"] == 1 and res["refstop"] == 6
+    assert res["trace"] == 1 and res["cli"] == {"kept": 1}

@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_orc_torch")
-SOURCES = ("locate", "myers", "pileup", "viterbi")
+SOURCES = ("locate", "myers", "pileup", "viterbi", "batched")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

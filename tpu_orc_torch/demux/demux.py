@@ -1,10 +1,14 @@
 """Dual-round demultiplexing with cutadapt-equivalent semantics on device.
 
-Copy of ``tpu_orc/demux/demux.py``; the device seam: every FRONT/BACK/
-INFIX locate goes through ``align/locate.py`` on the bank's torch device
-(CUDA: the kernel; CPU: its plain version), the fused dual-round program
-runs when the banks lie on CUDA (``_use_pallas`` becomes "on CUDA"), and
-the mesh path (``_decisions_sharded``) is not ported.
+Copy of ``tpu_orc/demux/demux.py``; the device seam: a locate runs on
+the bank's torch device (CUDA: a kernel; CPU: its plain version) and is
+routed by ``tpu_orc``'s rule (``_use_pallas`` :82-95), with "the bank lies
+on CUDA" in place of "the backend is not the CPU": FRONT/BACK/INFIX on a
+bank whose longest adapter is under 63 bp go through ``align/locate.py``
+(the Pallas kernels' counterparts), every other flag set and longer bank
+through ``align/batched.py`` (the XLA ``batched_locate``'s). The fused
+dual-round program runs when both banks take the first route on CUDA. The
+mesh path (``_decisions_sharded``) is not ported.
 
 Replaces the reference pipeline's scripts/02_cutadapt_loop.sh:
 
@@ -43,8 +47,10 @@ from ..align.spec import FRONT, BACK, DEFAULT_MIN_OVERLAP
 from ..io import encode
 from ..io.fastq import Record, write_records
 
-from ..align.locate import (_mode_of, locate_collect, locate_dispatch,
-                            tables_for_bank)
+from ..align.batched import (batched_locate, batched_locate_with_rc,
+                             to_numpy)
+from ..align.locate import (INFIX, _mode_of, locate_collect,
+                            locate_dispatch, tables_for_bank)
 from ..align.tables import LocateResult
 from .adapters import AdapterBank
 
@@ -90,15 +96,52 @@ def _bucket_pad(n: int) -> int:
     return encode.pad_to(n, 8192)
 
 
-def _use_pallas(bank: AdapterBank) -> bool:
-    """True when the bank's locates run on CUDA (the kernel); the plain
-    version serves a CPU bank with the same results."""
-    return torch.device(bank.device).type == "cuda"
+def _use_tiles(bank: AdapterBank, flags) -> bool:
+    """True when a locate goes through ``align/locate.py``: FRONT/BACK/
+    INFIX with adapters < 63 bp (``tpu_orc``'s ``_use_pallas`` without
+    its device test). Everything else goes through
+    ``align/batched.py``."""
+    return (int(flags) in (int(FRONT), int(BACK), int(INFIX))
+            and bank.masks.shape[1] < 63)
+
+
+def _use_pallas(bank: AdapterBank, flags) -> bool:
+    """``tpu_orc``'s rule: the locate kernels (``align/locate.py``) for
+    FRONT/BACK/INFIX with adapters < 63 bp on a CUDA bank; the batched
+    locate otherwise. A CPU bank under that rule takes the locate
+    kernels' plain version (:func:`_use_tiles`)."""
+    return (_use_tiles(bank, flags)
+            and torch.device(bank.device).type == "cuda")
+
+
+def _bank_tensors(bank: AdapterBank) -> tuple:
+    """(masks, lens, k_table, n_prefix) of the bank as tensors on its
+    device, cached on the bank (a run locates thousands of batches
+    against one bank; banks are immutable once located against)."""
+    got = getattr(bank, "_bl_tensors", None)
+    if got is None:
+        got = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(bank.device)
+                    for x in (bank.masks, bank.lens, bank.k_table,
+                              bank.n_prefix))
+        bank._bl_tensors = got
+    return got
+
+
+def _read_tensors(bank: AdapterBank, masks, lens) -> tuple:
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(bank.device)
+                 for x in (masks, np.asarray(lens, np.int32)))
 
 
 def locate_fwd_rc(bank: AdapterBank, masks, lens, flags,
                   min_overlap: int = DEFAULT_MIN_OVERLAP):
-    """(fwd, rc) LocateResults for a packed batch, on the bank's device."""
+    """(fwd, rc) LocateResults for a packed batch, on the bank's device
+    (``align/locate.py`` or, for other flag sets and longer banks, the
+    batched locate with its on-device reverse complement)."""
+    if not _use_tiles(bank, flags):
+        fwd, rcr = batched_locate_with_rc(
+            *_bank_tensors(bank), *_read_tensors(bank, masks, lens),
+            int(flags), min_overlap)
+        return to_numpy(fwd), to_numpy(rcr)
     rc_masks = encode.revcomp_read_masks(masks, lens)
     both = np.concatenate([masks, rc_masks])
     lens2 = np.concatenate([lens, lens])
@@ -164,11 +207,13 @@ def locate_batch_lazy(bank: AdapterBank, seqs: Sequence[str], flags,
     """Phase A of a pipelined locate_batch: pack + dispatch, NO fetch.
 
     Returns an opaque handle for locate_batch_collect. On CUDA the
-    kernel is launched asynchronously, so callers can dispatch every
-    chunk of a stage before fetching any (reorient is the high-volume
-    consumer: it scans ALL raw reads); on the CPU the plain version
-    computes eagerly (identical semantics, no pipelining). Tiny batches
-    short-circuit to the C++ oracle (see NATIVE_SMALL_READS)."""
+    locate kernel is launched asynchronously, so callers can dispatch
+    every chunk of a stage before fetching any (reorient is the
+    high-volume consumer: it scans ALL raw reads); on the CPU the plain
+    version, and on either device the batched locate (other flag sets,
+    banks of 63 bp or more), compute eagerly (identical semantics, no
+    pipelining). Tiny batches short-circuit to the C++ oracle (see
+    NATIVE_SMALL_READS)."""
     small = _locate_native_small(bank, seqs, flags, min_overlap, encoder)
     if small is not None:
         return ("done", small)
@@ -185,6 +230,10 @@ def locate_batch_lazy(bank: AdapterBank, seqs: Sequence[str], flags,
         masks, lens = encode.pack_batch(
             seqs, max_len=L, pad_multiple=1,
             encoder=encoder, pad_value=0)
+    if not _use_tiles(bank, flags):
+        return ("done", to_numpy(batched_locate(
+            *_bank_tensors(bank), *_read_tensors(bank, masks, lens),
+            int(flags), min_overlap)))
     tabs = tables_for_bank(bank, _mode_of(flags), min_overlap)
     lazy, A, B0 = locate_dispatch(tabs, masks, lens, _mode_of(flags),
                                   bank.device)
@@ -299,7 +348,7 @@ def _decisions_unfused(records: Sequence[Record], sp5: AdapterBank,
 
 
 def _use_fused(sp5: AdapterBank, sp27rc: AdapterBank) -> bool:
-    return (_use_pallas(sp5) and _use_pallas(sp27rc)
+    return (_use_pallas(sp5, FRONT) and _use_pallas(sp27rc, BACK)
             and torch.device(sp5.device) == torch.device(sp27rc.device))
 
 

@@ -6,12 +6,10 @@ path-bits pileup and Viterbi call ("cuda": the kernels of ``csrc/``;
 "cpu": their plain versions). ``stage_sort`` hands it to the sorter for
 the consensus pileup (the ``device`` backend of ``ORC_PILEUP_BACKEND``),
 whichever backend scores the bin; ``stage_rrna`` to stage 05a's finders.
-``run_all`` (:244) differs in two places:
-
-* it raises ``NotImplementedError`` for ``use_mesh``: the multi-device
-  path is not ported;
-* it never opens ``utils.profiling.device_trace`` (a jax.profiler trace,
-  not ported yet).
+``run_all`` (:244) differs in one place: it raises
+``NotImplementedError`` for ``use_mesh``, the multi-device path is not
+ported. Its ``trace_dir`` opens ``utils.profiling.device_trace``, a
+``torch.profiler`` trace.
 
   00 qc         raw.fastq            -> <name>_nanoplot/
   01 reorient   raw.fastq            -> pychopped/<name>_pass.fastq (+aux)
@@ -230,11 +228,13 @@ def stage_reorganise_cois(outdir: str) -> Dict[str, str]:
 
 
 def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
-            cfg: PipelineConfig, prefix: str = "amplicons") -> Dict:
+            cfg: PipelineConfig, prefix: str = "amplicons",
+            trace_dir: Optional[str] = None) -> Dict:
     """00 -> 05 on one dataset FASTQ. Returns a run report dict and
     writes run_report.json + metrics.json (per-stage wall time and
-    throughput)."""
-    from ..utils.profiling import Metrics
+    throughput; ``trace_dir`` or TPU_ORC_TRACE additionally captures a
+    torch.profiler trace of the whole run)."""
+    from ..utils.profiling import Metrics, device_trace
 
     if cfg.use_mesh:
         raise NotImplementedError("the multi-device path is not ported")
@@ -242,77 +242,78 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
     report: Dict = {"dataset": dataset, "amplicon": amplicon}
     met = Metrics(run=dataset)
 
-    with met.stage("00_qc") as st:
-        stats = stage_qc(in_fastq, outdir, dataset)
-        st.count(n_reads=stats.number_of_reads)
-    report["qc"] = {"reads": stats.number_of_reads, "n50": stats.n50}
+    with device_trace(trace_dir):
+        with met.stage("00_qc") as st:
+            stats = stage_qc(in_fastq, outdir, dataset)
+            st.count(n_reads=stats.number_of_reads)
+        report["qc"] = {"reads": stats.number_of_reads, "n50": stats.n50}
 
-    with met.stage("01_reorient") as st:
-        reor = stage_reorient(in_fastq, outdir, dataset, cfg)
-        st.count(n_reads=stats.number_of_reads)
-    report["reorient"] = reor.stats
-    pass_path = os.path.join(outdir, "pychopped",
-                             f"{dataset}_pass.fastq")
+        with met.stage("01_reorient") as st:
+            reor = stage_reorient(in_fastq, outdir, dataset, cfg)
+            st.count(n_reads=stats.number_of_reads)
+        report["reorient"] = reor.stats
+        pass_path = os.path.join(outdir, "pychopped",
+                                 f"{dataset}_pass.fastq")
 
-    with met.stage("02_demux") as st:
-        demux_rep = stage_demux(pass_path, outdir, dataset, cfg)
-        st.count(n_reads=demux_rep["total_reads"])
-    report["demux"] = {
-        "bins": len(demux_rep["final_bins"]),
-        "binned_reads": sum(demux_rep["final_bins"].values())}
+        with met.stage("02_demux") as st:
+            demux_rep = stage_demux(pass_path, outdir, dataset, cfg)
+            st.count(n_reads=demux_rep["total_reads"])
+        report["demux"] = {
+            "bins": len(demux_rep["final_bins"]),
+            "binned_reads": sum(demux_rep["final_bins"].values())}
 
-    report["barcodes"] = {}
+        report["barcodes"] = {}
 
-    def process_bin(comb: str):
-        """Stages 03-05 for one barcode bin — the reference's SLURM
-        array-task unit (03_amplicon_sorter.sh:7). Bins are fully
-        independent (own dirs, own seeded sorter), so
-        cfg.bin_workers > 1 overlaps one bin's host-side consensus
-        with another bin's device scoring."""
-        bin_path = os.path.join(outdir, "demuxed", "SP27",
-                                f"{comb}_{dataset}.fastq.gz")
-        with met.stage(f"03_sort/{comb}") as st:
-            result, consensus_path = stage_sort(bin_path, outdir, comb,
-                                                prefix, cfg)
-            st.count(n_reads=result.n_reads)
-        rep_bc = {"reads": result.n_reads, "skipped": result.skipped,
-                  "species_groups": sum(len(s)
-                                        for s in result.species)}
-        if not result.skipped and rep_bc["species_groups"]:
-            with met.stage(f"04_clean/{comb}") as st:
-                clean, crep = stage_clean(consensus_path, outdir, comb,
-                                          amplicon, cfg)
-                st.count(n_contigs=crep.total)
-            rep_bc["cleaned"] = len(clean)
-            cleaned_path = os.path.join(outdir, "primerless", comb,
-                                        f"cleaned_{comb}.fasta")
-            if amplicon.upper() != "COI":
-                # runs by default: anchor mode needs no model files
-                with met.stage(f"05_rrna/{comb}") as st:
-                    hits = stage_rrna(cleaned_path, outdir, comb, cfg)
-                    st.count(n_contigs=len(clean))
-                rep_bc["rrna"] = {g: len(h) for g, h in hits.items()}
-        return comb, rep_bc
+        def process_bin(comb: str):
+            """Stages 03-05 for one barcode bin — the reference's SLURM
+            array-task unit (03_amplicon_sorter.sh:7). Bins are fully
+            independent (own dirs, own seeded sorter), so
+            cfg.bin_workers > 1 overlaps one bin's host-side consensus
+            with another bin's device scoring."""
+            bin_path = os.path.join(outdir, "demuxed", "SP27",
+                                    f"{comb}_{dataset}.fastq.gz")
+            with met.stage(f"03_sort/{comb}") as st:
+                result, consensus_path = stage_sort(bin_path, outdir, comb,
+                                                    prefix, cfg)
+                st.count(n_reads=result.n_reads)
+            rep_bc = {"reads": result.n_reads, "skipped": result.skipped,
+                      "species_groups": sum(len(s)
+                                            for s in result.species)}
+            if not result.skipped and rep_bc["species_groups"]:
+                with met.stage(f"04_clean/{comb}") as st:
+                    clean, crep = stage_clean(consensus_path, outdir, comb,
+                                              amplicon, cfg)
+                    st.count(n_contigs=crep.total)
+                rep_bc["cleaned"] = len(clean)
+                cleaned_path = os.path.join(outdir, "primerless", comb,
+                                            f"cleaned_{comb}.fasta")
+                if amplicon.upper() != "COI":
+                    # runs by default: anchor mode needs no model files
+                    with met.stage(f"05_rrna/{comb}") as st:
+                        hits = stage_rrna(cleaned_path, outdir, comb, cfg)
+                        st.count(n_contigs=len(clean))
+                    rep_bc["rrna"] = {g: len(h) for g, h in hits.items()}
+            return comb, rep_bc
 
-    combs = sorted(demux_rep["final_bins"])
-    if cfg.bin_workers > 1 and len(combs) > 1:
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(cfg.bin_workers) as pool:
-            for comb, rep_bc in pool.map(process_bin, combs):
+        combs = sorted(demux_rep["final_bins"])
+        if cfg.bin_workers > 1 and len(combs) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(cfg.bin_workers) as pool:
+                for comb, rep_bc in pool.map(process_bin, combs):
+                    report["barcodes"][comb] = rep_bc
+        else:
+            for comb in combs:
+                comb, rep_bc = process_bin(comb)
                 report["barcodes"][comb] = rep_bc
-    else:
-        for comb in combs:
-            comb, rep_bc = process_bin(comb)
-            report["barcodes"][comb] = rep_bc
 
-    if amplicon.upper() == "COI":
-        with met.stage("05b_reorganise_cois") as st:
-            copied = stage_reorganise_cois(outdir)
-            st.count(n_contigs=len(copied))
-        report["coi_gene"] = {"samples": len(copied)}
+        if amplicon.upper() == "COI":
+            with met.stage("05b_reorganise_cois") as st:
+                copied = stage_reorganise_cois(outdir)
+                st.count(n_contigs=len(copied))
+            report["coi_gene"] = {"samples": len(copied)}
 
-    summarize_barcode_dir(os.path.join(outdir, "sorted"),
-                          os.path.join(outdir, "amplicon_summary.tsv"))
+        summarize_barcode_dir(os.path.join(outdir, "sorted"),
+                              os.path.join(outdir, "amplicon_summary.tsv"))
 
     met.write(os.path.join(outdir, "metrics.json"))
     report["metrics"] = met.as_dict()

@@ -77,9 +77,13 @@ def mutate(rnd: random.Random, s: str, rate: float) -> str:
     return "".join(out)
 
 
-def banks(seed: int = 5) -> Dict[str, object]:
+def banks(seed: int = 5, head: int = 0) -> Dict[str, object]:
     """The synthetic sequences: {'sp5': [(name, seq)], 'sp27rc': [...],
-    'pychopper': [...], 'coi': [...], 'rna': [...]}."""
+    'pychopper': [...], 'coi': [...], 'rna': [...]}. ``head`` > 0 puts a
+    shared random head of that many bp before every SP5 and SP27-rc
+    adapter, so that the banks reach past the 62 bp of the Pallas tables
+    (59 + 11 = 70 bp: the batched locate's route); the other sequences
+    stay as they are."""
     rnd = random.Random(seed)
     pre5, tail5 = _rand(rnd, 25), _rand(rnd, 11) + "GGCCAG"
     head27, tail27 = _rand(rnd, 17), _rand(rnd, 25)
@@ -91,6 +95,10 @@ def banks(seed: int = 5) -> Dict[str, object]:
     sp5 = [(f"SP5_{k + 1:03d}", pre5 + idx[k] + tail5) for k in range(12)]
     sp27rc = [(f"SP27_{k + 1:03d}", head27 + idx[12 + k] + tail27)
               for k in range(12)]
+    if head:
+        h = _rand(random.Random(seed + 7), head)
+        sp5 = [(n, h + s) for n, s in sp5]
+        sp27rc = [(n, h + s) for n, s in sp27rc]
     pychopper = [("SP5", pre5 + "N" * 17 + tail5),
                  ("SP27", encode.revcomp(head27 + "N" * 17 + tail27))]
     coi_f, coi_fb = _degenerate(rnd, 25, 4), _degenerate(rnd, 26, 5)
@@ -109,9 +117,10 @@ def _write_fasta(path: str, pairs) -> None:
         fh.write("".join(f">{n}\n{s}\n" for n, s in pairs))
 
 
-def write_adapter_dir(dirpath: str, seed: int = 5) -> str:
-    """Write the six adapter/primer files into ``dirpath``; returns it."""
-    b = banks(seed)
+def write_adapter_dir(dirpath: str, seed: int = 5, head: int = 0) -> str:
+    """Write the six adapter/primer files into ``dirpath``; returns it.
+    ``head`` as in :func:`banks`."""
+    b = banks(seed, head)
     os.makedirs(dirpath, exist_ok=True)
     _write_fasta(os.path.join(dirpath, FILES[0]), b["sp5"])
     _write_fasta(os.path.join(dirpath, FILES[1]), b["sp27rc"])
@@ -126,15 +135,16 @@ def write_adapter_dir(dirpath: str, seed: int = 5) -> str:
 def make_plate(n_per_bin: int, n5: int = 12, n27: int = 8, seed: int = 11,
                big_bin: Tuple[int, int] | None = None, big_reads: int = 1000,
                insert_len: int = 450, error_rate: float = 0.02,
-               bank_seed: int = 5):
+               bank_seed: int = 5, head: int = 0):
     """Plate reads (raw-read structure: SP5 + COI primer + template + COI
-    primer + SP27-rc, half reverse-complemented), shuffled.
+    primer + SP27-rc, half reverse-complemented), shuffled; the adapters
+    of ``banks(bank_seed, head)``.
 
     Each (SP5, SP27) bin holds ``n_per_bin`` reads of one template; the
     ``big_bin`` holds ``big_reads`` reads of two templates. Returns
     (records, planted) with planted[(sp5_name, sp27_name)] the list of
     planted inserts (primers plus template) of that bin."""
-    b = banks(bank_seed)
+    b = banks(bank_seed, head)
     rnd = random.Random(seed)
     coi_f = concretize(rnd, b["coi"][0][1])
     coi_r = concretize(rnd, b["coi"][2][1])

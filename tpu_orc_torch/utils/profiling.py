@@ -1,20 +1,24 @@
-"""Run metrics: per-stage wall time and throughput counters.
+"""Run metrics and device tracing.
 
-Copy of :class:`Metrics` with its :class:`StageMetric` and
-:class:`StageTimer` from ``tpu_orc/utils/profiling.py`` (:25-97); the
-code is unchanged. That module's ``device_trace`` is a ``jax.profiler``
-trace; its ``torch.profiler`` counterpart is not ported yet.
+Copy of ``tpu_orc/utils/profiling.py``: :class:`Metrics` with its
+:class:`StageMetric` and :class:`StageTimer` (:25-97), the code
+unchanged, and :func:`device_trace` (:100-111), whose ``jax.profiler``
+trace becomes a ``torch.profiler`` one.
 
 :class:`Metrics` accumulates one ``metrics.json`` per run and narrates
-each stage to the log as it finishes.
+each stage to the log as it finishes; :func:`device_trace` records the
+host's and the card's activity of a run into a Chrome/TensorBoard trace
+when a trace directory is given (argument or ``TPU_ORC_TRACE``), and
+does nothing otherwise.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 @dataclass
@@ -90,3 +94,28 @@ class StageTimer:
             self._metrics.add(StageMetric(self._name, wall,
                                           dict(self._counters)))
         return False
+
+
+@contextmanager
+def device_trace(trace_dir: Optional[str] = None):
+    """``torch.profiler`` trace when a directory is given (argument or
+    ``TPU_ORC_TRACE``); no-op otherwise. Records CPU activity, and CUDA
+    activity where a CUDA device is present, and writes one gzipped
+    Chrome trace (``<host>_<pid>.<ns>.pt.trace.json.gz``, TensorBoard's
+    layout) into the directory when the block ends. Yields the
+    directory, or None."""
+    trace_dir = trace_dir or os.environ.get("TPU_ORC_TRACE")
+    if not trace_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(
+                     trace_dir, use_gzip=True)):
+        yield trace_dir
