@@ -73,10 +73,15 @@ Phases:
      adapters) against the SP5 59-mers and a bank of 64-300 bp adapters;
      all 9 outputs equal, and in BACK refstop >= 256 on the reads planted
      with the first 260 or 290 bp of the 256 and 300 bp adapters; FRONT
-     and BACK timed. Then stage_demux on 1,000 reads of a plate whose SP5
-     and SP27-rc adapters carry a shared 11 bp head (70 bp), with device
-     cuda and cpu: demuxed/ trees byte-identical, the batched kernel
-     launched, the locate kernels and the fused demux not;
+     and BACK timed, and compared and timed on a 4-adapter 70 bp bank at
+     the same reads and on the long bank at 2,048 rRNA reads x L 3,584
+     (bands with long reads, the global handoff), each with the rows a
+     lane the wrapper picks; the new times are printed beside the
+     earlier thread design's. Then stage_demux
+     on 1,000 reads of a plate whose SP5 and SP27-rc adapters carry a
+     shared 11 bp head (70 bp), with device cuda and cpu: demuxed/ trees
+     byte-identical, the batched kernel launched, the locate kernels and
+     the fused demux not;
  12. cli run-all --trace on phase 6's plate: the files byte-identical to
      phase 6's, the trace's CUDA kernel events equal to the run's launch
      counts per kernel family; prints the trace's size, the device's busy
@@ -110,12 +115,13 @@ GHz; an SM has half as many int32 lanes). Operations are counted from
 this run's data: per DP cell of locate 16 (compares, adds and selects of
 csrc/locate.cu's inner loop; the same count for the KS kernel, which
 computes the same contract, and for the batched locate, counted over
-the cells its threads visit: rows 1..m of each adapter by columns
-1..len of each read), per 32-bit word step of Myers and of the
-pileup 20 (the bit-vector recurrence). The Viterbi's are float32: 15 per
-(position, node) (9 adds and 6 max of _viterbi_kernel's step), over the
-float32 issue rate, 132 x 128 lanes x 1.98 GHz = 3.35e13/s. No single
-PyTorch call computes these dynamic programs, so ``library_ms`` is null.
+the cells the contract needs: rows 1..m of each adapter by columns
+1..len of each read, not the rows its bands pad past m), per 32-bit word
+step of Myers and of the pileup 20 (the bit-vector recurrence). The
+Viterbi's are float32: 15 per (position, node) (9 adds and 6 max of
+_viterbi_kernel's step), over the float32 issue rate, 132 x 128 lanes
+x 1.98 GHz = 3.35e13/s. No single PyTorch call computes these dynamic
+programs, so ``library_ms`` is null.
 """
 import json
 import os
@@ -130,6 +136,13 @@ BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 INT_OPS_PER_S = 132 * 64 * 1.98e9  # int32 issue rate
 FP32_OPS_PER_S = 132 * 128 * 1.98e9  # float32 issue rate (no FMA)
 OPS_PER_CELL = {"locate": 16, "myers": 20, "pileup": 20, "viterbi": 15}
+#: the batched locate's times in its earlier design, one thread per
+#: (read, adapter), at phase 11's shapes (an NVIDIA H100 80GB HBM3 at
+#: 700.00 W), printed beside this run's
+THREAD_DESIGN_MS = {"batched_locate_front": 4.128,
+                    "batched_locate_back": 5.578,
+                    "batched_locate_front_long": 31.371,
+                    "batched_locate_back_long": 36.225}
 
 
 def card_line() -> str:
@@ -207,6 +220,18 @@ def ptxas_summary(log: str):
     return out
 
 
+def demangle(name: str) -> str:
+    """A kernel's C++ name from its mangled one (``c++filt``, where the
+    host has it), without the argument list: a template's instances
+    differ in their template arguments."""
+    import shutil
+    if not shutil.which("c++filt"):
+        return name
+    out = subprocess.run(["c++filt", name], capture_output=True, text=True,
+                         timeout=60).stdout.strip() or name
+    return out.split("(")[0]
+
+
 def host_ms(fn, reps=5):
     """Median ms of ``reps`` calls after one warm-up, host clock, the
     device synchronised before and after each call."""
@@ -272,7 +297,7 @@ class Smoke:
               f"{t['build_s']:.1f} s")
         for name, log in _build.PTXAS_LOG.items():
             for fn, regs, frame in ptxas_summary(log):
-                print(f"   {name} ptxas {fn}: {regs}; {frame}")
+                print(f"   {name} ptxas {demangle(fn)}: {regs}; {frame}")
         self.adapters = synthetic.write_adapter_dir(
             os.path.join(WORK, "adapters"))
 
@@ -1059,14 +1084,79 @@ class Smoke:
         masks, lens = synthetic.read_masks(seqs, 512)
         return masks, lens, planted
 
+    def batched_long_reads(self):
+        """2,048 rRNA plate reads x L 3,584 for the batched locate with
+        the long bank: every 8th carries the first 260 or 290 bp of a
+        long-bank adapter at its end (cut to 3,000 bp before it), every
+        8th the last 260 or 290 bp of one at its start, every 97th of the
+        rest is empty, every 4th is reverse-complemented, then all are
+        shuffled (seeded)."""
+        import random
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.io import encode
+        rnd = random.Random(29)
+        _, recs, _ = self.rrna_plate()
+        seqs = []
+        for k in range(2048):
+            s = recs[k].seq[:3584]
+            a = self.longs[k // 8 % 6]
+            cut = (260, 290)[k // 48 % 2]
+            if k % 8 == 0:
+                s = s[:3000] + a[:cut]
+            elif k % 8 == 4:
+                s = (a[-cut:] + s)[:3584]
+            elif k % 97 == 5:
+                s = ""
+            if k % 4 == 3:
+                s = encode.revcomp(s)
+            seqs.append(s)
+        rnd.shuffle(seqs)
+        return synthetic.read_masks(seqs, 3584)
+
+    def batched_row(self, label, bank, tabs, reads, flags, mo, timed):
+        """One comparison of the batched kernel with its plain version,
+        all 9 fields; timed ones record a kernel entry."""
+        torch = self.torch
+        from tpu_orc_torch.align import batched as BL
+        from tpu_orc_torch.align.spec import FRONT
+        got = BL.batched_locate_cuda(*tabs, *reads, flags, mo)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = BL.batched_locate_plain(*tabs, *reads, flags, mo)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            bad = [BL.FIELDS[k] for k in range(9)
+                   if not torch.equal(got[k], want[k])]
+            raise AssertionError(f"batched locate{label} flags {flags} "
+                                 f"min_overlap {mo}: {bad} differ")
+        if not timed:
+            return got
+        mode = "front" if flags == int(FRONT) else "back"
+        name = f"batched_locate_{mode}{label}"
+        ms = cuda_ms(lambda: BL.batched_locate_cuda(*tabs, *reads, flags,
+                                                    mo))
+        cells = float(reads[1].sum()) * float(bank.lens.sum())
+        self.record(name, "tpu_orc_torch/csrc/batched.cu",
+                    "tpu_orc/align/batched.py:121", max_abs_err(got, want),
+                    ms, pms, nbytes(*tabs, *reads, got),
+                    OPS_PER_CELL["locate"] * cells)
+        k = BL.choose_k(int(bank.lens.max()))
+        print(f"   {name}: 16 lanes x {k} rows a lane, "
+              f"{BL.n_bands(bank.lens, k).tolist()} bands, {ms:.3f} ms "
+              f"({ms / self.kernels[name]['bound_ms']:.2f}x bound)",
+              flush=True)
+        return got
+
     def batched(self):
         """The batched locate kernel against its plain version on the
         card (every valid flag set at min_overlap 3 and 0, on the SP5
-        59-mers and on a long bank of 64-300 bp adapters), then
+        59-mers and on a long bank of 64-300 bp adapters; FRONT and BACK
+        on a 4-adapter 70 bp bank and on the long bank at L 3,584), then
         stage_demux on lengthened banks on the card and on the CPU."""
         import numpy as np
         torch = self.torch
-        from tpu_orc_torch.align import batched as BL
+        from tpu_orc_torch import synthetic
         from tpu_orc_torch.align.spec import BACK, FRONT
         from tpu_orc_torch.demux.adapters import AdapterBank
         masks, lens, planted = self.batched_reads()
@@ -1075,27 +1165,25 @@ class Smoke:
             0.1, "cuda")
         longb = AdapterBank([f"L{len(a)}" for a in self.longs], self.longs,
                             0.1, "cuda")
+        b70 = AdapterBank.from_pairs(synthetic.banks(head=11)["sp5"][:4],
+                                     0.1, "cuda")
         reads = [torch.from_numpy(x).cuda() for x in (masks, lens)]
+        rreads = [torch.from_numpy(x).cuda()
+                  for x in self.batched_long_reads()]
         flag_sets = [f for f in range(16) if not (f & 1 and f & 4)]
-        for label, bank in (("", sp5), ("_long", longb)):
-            tabs = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        timed = (int(FRONT), int(BACK))
+
+        def tables(bank):
+            return [torch.from_numpy(np.ascontiguousarray(x)).cuda()
                     for x in (bank.masks, bank.lens, bank.k_table,
                               bank.n_prefix)]
-            cells = float(reads[1].sum()) * float(bank.lens.sum())
+
+        for label, bank in (("", sp5), ("_long", longb)):
+            tabs = tables(bank)
             for flags in flag_sets:
                 for mo in (3, 0):
-                    got = BL.batched_locate_cuda(*tabs, *reads, flags, mo)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    want = BL.batched_locate_plain(*tabs, *reads, flags, mo)
-                    torch.cuda.synchronize()
-                    pms = (time.perf_counter() - t0) * 1e3
-                    if not torch.equal(got, want):
-                        bad = [BL.FIELDS[k] for k in range(9)
-                               if not torch.equal(got[k], want[k])]
-                        raise AssertionError(
-                            f"batched locate{label} flags {flags} "
-                            f"min_overlap {mo}: {bad} differ")
+                    got = self.batched_row(label, bank, tabs, reads, flags,
+                                           mo, mo == 3 and flags in timed)
                     if flags == int(BACK) and label:
                         stop = got[4].cpu().numpy()
                         for k, (j, bp) in planted.items():
@@ -1105,22 +1193,26 @@ class Smoke:
                         print(f"   BACK, long bank: every read planted with "
                               f"the first 260 or 290 bp of the 256 and 300 "
                               f"bp adapters gives refstop >= 256")
-                    if mo == 3 and flags in (int(FRONT), int(BACK)):
-                        mode = "front" if flags == int(FRONT) else "back"
-                        ms = cuda_ms(lambda: BL.batched_locate_cuda(
-                            *tabs, *reads, flags, mo))
-                        self.record(f"batched_locate_{mode}{label}",
-                                    "tpu_orc_torch/csrc/batched.cu",
-                                    "tpu_orc/align/batched.py:121",
-                                    max_abs_err(got, want), ms, pms,
-                                    nbytes(*tabs, *reads, got),
-                                    OPS_PER_CELL["locate"] * cells)
             print(f"   batched locate{label or ' (SP5 59-mers)'}: "
                   f"{len(bank)} adapters of {int(bank.lens.min())}-"
                   f"{int(bank.lens.max())} bp x 2,048 reads x L 512 "
                   f"({int((reads[1] == 0).sum())} empty): all 9 fields "
                   f"equal to plain for {len(flag_sets)} flag sets at "
                   f"min_overlap 3 and 0", flush=True)
+        for label, bank, rd, shape in (
+                ("_b70", b70, reads, "2,048 reads x L 512"),
+                ("_long3584", longb, rreads, "2,048 rRNA reads x L 3,584")):
+            tabs = tables(bank)
+            for flags in timed:
+                self.batched_row(label, bank, tabs, rd, flags, 3, True)
+            print(f"   batched locate{label}: {len(bank)} adapters of "
+                  f"{int(bank.lens.min())}-{int(bank.lens.max())} bp x "
+                  f"{shape} ({int((rd[1] == 0).sum())} empty): FRONT and "
+                  f"BACK equal to plain at min_overlap 3", flush=True)
+        print("   the earlier thread design (NVIDIA H100 80GB HBM3, "
+              "700.00 W) against this run: " + ", ".join(
+                  f"{n} {ms:.3f} -> {self.kernels[n]['ms']:.3f} ms"
+                  for n, ms in THREAD_DESIGN_MS.items()), flush=True)
         self.demux_long()
 
     def demux_long(self):
@@ -1171,7 +1263,7 @@ class Smoke:
         assert not on, f"locate kernels launched on 70 bp banks: {on}"
         bc = cuda_counts["batched"]
         assert bc["front"] and bc["back"], bc
-        for label in ("", "_long"):
+        for label in ("", "_long", "_b70", "_long3584"):
             self.launches({f"batched_locate_{m}{label}": bc[m]
                            for m in ("front", "back")})
         a, b = trees["cuda"], trees["cpu"]

@@ -291,3 +291,93 @@ def test_stage_demux_with_70bp_banks_equals_reference(tmp_path):
     assert len(got["final_bins"]) == 6
     assert sum(got["final_bins"].values()) == 60
     assert_same_tree(str(tmp_path / "port"), str(tmp_path / "ref"))
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrapper's host logic (the kernel itself runs on the card only:
+# tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,lens,bands,slots", [
+    (4, [0, 31, 63, 64, 255, 12], [1, 1, 1, 2, 4, 1], [-1, -1, -1, 0, 1, -1]),
+    (5, [0, 31, 79, 80, 255, 12], [1, 1, 1, 2, 4, 1], [-1, -1, -1, 0, 1, -1]),
+    (8, [0, 31, 127, 128, 255, 12], [1, 1, 1, 2, 2, 1],
+     [-1, -1, -1, 0, 1, -1]),
+    (8, [300, 64, 256, 611], [3, 1, 3, 5], [0, -1, 1, 2]),
+    (8, [70], [1], [-1]),
+])
+def test_band_count_and_handoff_slots(k, lens, bands, slots):
+    """Rows 0..m run in bands of 16 k rows; only adapters of more than
+    one band take a handoff slot, numbered in bank order."""
+    lens = torch.tensor(lens, dtype=torch.int32)
+    assert BL.n_bands(lens, k).tolist() == bands
+    got = BL.handoff_slots(lens, k)
+    assert got.dtype == torch.int32 and got.tolist() == slots
+
+
+@pytest.mark.parametrize("max_len,k", [
+    (0, 4), (1, 4), (59, 4), (63, 4), (64, 5), (70, 5), (79, 5), (80, 8),
+    (127, 8), (128, 8), (300, 8), (611, 8)])
+def test_choose_k_fits_the_bank_in_one_band_where_it_can(max_len, k):
+    """The fewest rows a lane of 4, 5 and 8 that hold the longest adapter
+    in one band, else 8: no handoff where one band does."""
+    assert BL.choose_k(max_len) == k
+    assert all(BL.LANES * j <= max_len for j in BL.ROWS_PER_LANE if j < k)
+    one_band = int(BL.n_bands([max_len], k)[0]) == 1
+    assert one_band == (max_len < BL.LANES * BL.ROWS_PER_LANE[-1])
+    assert BL.handoff_slots([max_len], k).tolist() == \
+        [-1 if one_band else 0]
+
+
+def test_table_bytes_bound_the_adapter_length():
+    """8 (M+1) + M bytes of tables must fit 227 KB: M 25,826 is the
+    longest adapter bank the kernel takes, and its matches (<= M) fit the
+    16 bits the kernel shuffles them in."""
+    assert BL.table_bytes(300) == 8 * 301 + 300
+    M = (BL.MAX_SHARED - 8) // 9
+    assert BL.table_bytes(M) <= BL.MAX_SHARED < BL.table_bytes(M + 1)
+    assert M == 25826 < 1 << 16
+
+
+@pytest.mark.parametrize("n_slots,L,B,want", [
+    (0, 3584, 2048, 2048),                    # no handoff: one launch
+    (4, 3584, 2048, 1170),                    # 4 x 3,584 x 16 B a read
+    (4, 512, 100, 100),
+    (1, 1 << 25, 10, 1),                      # one read over the bound
+    (2, 1000, 1, 1),
+])
+def test_chunk_reads_under_the_handoff_bound(n_slots, L, B, want):
+    assert BL.chunk_reads(n_slots, L, B) == want
+
+
+def test_chunk_reads_follows_the_scratch_bound(monkeypatch):
+    monkeypatch.setattr(BL, "SCRATCH_BYTES", 7 * 3 * 400 * BL.HAND_BYTES)
+    assert BL.chunk_reads(3, 400, 300) == 7
+    assert BL.chunk_reads(3, 401, 300) == 6
+    assert BL.chunk_reads(0, 400, 300) == 300
+
+
+def _cuda_args(M=10, B=4, L=32):
+    rm = np.ones((2, M), np.uint8)
+    rl = np.array([M, M // 2], np.int32)
+    qm = np.ones((B, L), np.uint8)
+    ql = np.full(B, L // 2, np.int32)
+    return rm, rl, make_k_table(0.1, rm, rl), make_n_prefix(rm), qm, ql
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        BL.batched_locate_cuda(*_cuda_args(), int(BACK), 3)
+    assert BL.locate_stack(*_cuda_args(), int(BACK), 3).shape == (9, 4, 2)
+
+
+def test_kernel_wrapper_refuses_tables_over_shared_memory():
+    M = (BL.MAX_SHARED - 8) // 9 + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        BL.batched_locate_cuda(*_cuda_args(M=M, L=4), int(BACK), 3)
+
+
+@pytest.mark.parametrize("flags", [5, 7, 13, 15])
+def test_kernel_wrapper_refuses_start1_with_stop1(flags):
+    with pytest.raises(NotImplementedError):
+        BL.batched_locate_cuda(*_cuda_args(), flags, 3)

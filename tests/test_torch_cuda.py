@@ -508,27 +508,148 @@ def _batched_case(rng, lo, hi):
     return bank, masks, lens
 
 
+def _batched_args(bank, masks, lens, device):
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (bank.masks, bank.lens, bank.k_table, bank.n_prefix,
+                      masks, lens)]
+
+
 @pytest.mark.parametrize("flags", BATCHED_FLAGS)
 def test_batched_kernel_equals_plain(cuda, flags, monkeypatch):
     """All 9 outputs at min_overlap 3 and 0, adapters of 3-60 and of
     250-300 bp (rows past 255), empty and N-bearing reads, in one launch
-    and in launches of 7 reads (a scratch of 7 reads)."""
+    and, where adapters take more than one band, in launches of 7 reads
+    (the scratch bound set to 7 reads' handoff)."""
     rng = np.random.default_rng(40 + flags)
     for lo, hi in ((3, 60), (250, 300)):
         bank, masks, lens = _batched_case(rng, lo, hi)
-        args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
-                for x in (bank.masks, bank.lens, bank.k_table,
-                          bank.n_prefix, masks, lens)]
+        args = _batched_args(bank, masks, lens, cuda)
+        L = masks.shape[1]
+        k = BL.choose_k(int(bank.lens.max()))
+        n_slots = int((BL.handoff_slots(bank.lens, k) >= 0).sum())
         for mo in (3, 0):
             want = BL.batched_locate_plain(*args, flags, mo)
             got = BL.batched_locate_cuda(*args, flags, mo)
             monkeypatch.setattr(BL, "SCRATCH_BYTES",
-                                7 * 12 * bank.masks.shape[1] * 5)
+                                7 * n_slots * L * BL.HAND_BYTES)
+            mode = BL.MODE_NAMES.get(flags, "other")
+            before = BL.LAUNCHES.snapshot()[mode]
             chunked = BL.batched_locate_cuda(*args, flags, mo)
+            n = BL.LAUNCHES.snapshot()[mode] - before
             monkeypatch.undo()
             torch.cuda.synchronize()
+            assert n == (-(-300 // 7) if n_slots else 1), (lo, n)
             assert torch.equal(got, want), (lo, mo)
             assert torch.equal(chunked, want), (lo, mo)
+
+
+def _band_bank(rng, lengths):
+    refs = ["".join(rng.choice(list("ACGTN"), size=n,
+                               p=[.24, .24, .24, .24, .04]))
+            for n in lengths]
+    return AdapterBank([f"a{k}" for k in range(len(refs))], refs, 0.1), refs
+
+
+def _band_reads(rng, refs, n_reads, L):
+    """n_reads reads (odd, so that a 16-lane warp has an empty half) of
+    at most L bp: empty, 1 bp, shorter than the shortest adapter, one of
+    exactly L bp, whole adapters with one substitution, random, and
+    planted with mutated prefixes (at the read's end) and suffixes (at
+    its start) of the adapters."""
+    reads = _seqs(rng, n_reads, 0, min(L, 700) + 1, p=(.25, .25, .25, .25,
+                                                        0))
+    for k in range(n_reads):
+        a = refs[k % len(refs)]
+        cut = int(rng.integers(1, len(a) + 1))
+        if k % 3 == 1:
+            reads[k] = (reads[k][:40] + a[:cut])[:L]
+        elif k % 3 == 2:
+            reads[k] = (a[-cut:] + reads[k])[:L]
+        if k % 6 in (1, 2):
+            s = list(reads[k])
+            for p in rng.integers(0, len(s), size=len(s) // 25 + 1):
+                s[p] = "ACGT"[int(rng.integers(0, 4))]
+            reads[k] = "".join(s)
+    for k, a in enumerate(refs):         # whole adapters, one substitution
+        p = int(rng.integers(0, len(a)))
+        reads[12 + k] = a[:p] + "ACGT"[int(rng.integers(0, 4))] + a[p + 1:]
+    reads[0], reads[3] = "", "G"
+    reads[6] = reads[6][:max(1, min(len(r) for r in refs) - 2)]
+    tail = refs[0][:200]
+    reads[9] = (_seqs(rng, 1, L, L + 1, p=(.25, .25, .25, .25, 0))[0]
+                [:L - len(tail)] + tail)
+    return synthetic.read_masks(reads, L)
+
+
+def _assert_kernel_equals_plain(args, flags):
+    """The kernel, in one launch, against the plain version on all 9
+    fields at min_overlap 3 and 0."""
+    mode = BL.MODE_NAMES.get(flags, "other")
+    for mo in (3, 0):
+        want = BL.batched_locate_plain(*args, flags, mo)
+        assert int(want[0].sum()) > 0, mo
+        before = BL.LAUNCHES.snapshot()[mode]
+        got = BL.batched_locate_cuda(*args, flags, mo)
+        torch.cuda.synchronize()
+        assert BL.LAUNCHES.snapshot()[mode] == before + 1
+        if not torch.equal(got, want):
+            bad = [BL.FIELDS[k] for k in range(9)
+                   if not torch.equal(got[k], want[k])]
+            raise AssertionError(f"min_overlap {mo}: {bad} differ")
+
+
+#: banks that reach each kept rows a lane K (R = 16 K rows a band): one
+#: band at R-2 and R-1 of every K (with the longest adapter the next
+#: smaller K cannot hold), and the band edges of K 8, R-2 .. 2R+1
+BAND_BANKS = {"k4": ((1, 2, 62, 63), 4, [1, 1, 1, 1]),
+              "k5": ((63, 64, 78, 79), 5, [1, 1, 1, 1]),
+              "k8": ((80, 126, 127), 8, [1, 1, 1]),
+              "k8_edges": ((126, 127, 128, 129, 256, 257), 8,
+                           [1, 1, 2, 2, 3, 3])}
+
+
+@pytest.mark.parametrize("bank_id", sorted(BAND_BANKS))
+@pytest.mark.parametrize("flags", BATCHED_FLAGS)
+def test_batched_kernel_at_band_edges(cuda, flags, bank_id):
+    """Adapter lengths that make the wrapper pick each kept K, one band
+    at every K and R-2, R-1, R, R+1, 2R and 2R+1 at K 8: all 9 fields
+    equal to plain on 37 reads with empty, 1 bp and short reads, at
+    min_overlap 3 and 0."""
+    lengths, k, bands = BAND_BANKS[bank_id]
+    rng = np.random.default_rng(700 + 10 * flags + k + len(lengths))
+    bank, refs = _band_bank(rng, lengths)
+    assert BL.choose_k(max(lengths)) == k
+    assert BL.n_bands(bank.lens, k).tolist() == bands
+    masks, lens = _band_reads(rng, refs, 37, 2 * max(lengths) + 60)
+    _assert_kernel_equals_plain(_batched_args(bank, masks, lens, cuda),
+                                flags)
+
+
+@pytest.mark.parametrize("flags", BATCHED_FLAGS)
+def test_batched_kernel_long_adapters_and_reads(cuda, flags):
+    """Adapters of 255, 256, 300 and 611 bp (two to five bands of 128
+    rows) against 25 reads up to L 3,584, one of them 3,584 bp: all 9
+    fields equal to plain."""
+    rng = np.random.default_rng(900 + flags)
+    bank, refs = _band_bank(rng, (255, 256, 300, 611))
+    masks, lens = _band_reads(rng, refs, 25, 3584)
+    assert int(lens.max()) == 3584 and int(lens.min()) == 0
+    _assert_kernel_equals_plain(_batched_args(bank, masks, lens, cuda),
+                                flags)
+
+
+@pytest.mark.parametrize("flags", BATCHED_FLAGS)
+def test_batched_kernel_small_banks(cuda, flags):
+    """A bank of one 70 bp adapter and one of two adapters that take one
+    and three bands, on 37 reads (odd B)."""
+    rng = np.random.default_rng(1100 + flags)
+    for lengths, k, bands in (((70,), 5, [1]), ((20, 261), 8, [1, 3])):
+        bank, refs = _band_bank(rng, lengths)
+        masks, lens = _band_reads(rng, refs, 37, 400)
+        assert BL.choose_k(max(lengths)) == k
+        assert BL.n_bands(bank.lens, k).tolist() == bands
+        _assert_kernel_equals_plain(_batched_args(bank, masks, lens, cuda),
+                                    flags)
 
 
 def test_batched_locate_dispatches_cuda_to_kernel(cuda):

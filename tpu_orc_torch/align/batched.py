@@ -12,11 +12,13 @@ only. The device of the tensors picks the version:
   torch ops over [B, A, M+1] planes (the column scan, tie to the larger
   row, as ``_prefix_min_scan`` :94-108);
 * a CUDA tensor goes to :func:`batched_locate_cuda`, the hand-written
-  kernel ``orc_locate_flags`` of ``csrc/batched.cu``: one thread per
-  (read, adapter) running the sequential column DP of ``align/spec.py``
-  (the loop of ``native/oracle.cpp``), which is the same recurrence as
-  the scan. A CUDA tensor always reaches the kernel, or the wrapper
-  raises.
+  kernel ``orc_locate_flags`` of ``csrc/batched.cu``: an anti-diagonal
+  wavefront over the lanes of a warp (16 lanes a read and adapter, K
+  rows a lane), the adapter's rows run in bands of 16K rows with each
+  band's last row handed to the next, computing the sequential
+  column DP of ``align/spec.py`` (the loop of ``native/oracle.cpp``),
+  which is the same recurrence as the scan. A CUDA tensor always
+  reaches the kernel, or the wrapper raises.
 
 Both keep ``batched_locate``'s contract with one exception: its
 STOP_WITHIN_SEQ1 final-column reduction packs the row into the low 8
@@ -42,11 +44,9 @@ from .tables import LocateResult
 BIG = 1 << 28
 #: output planes of both versions, in :class:`LocateResult`'s order
 FIELDS = LocateResult._fields
-#: bound on the kernel's column scratch (cost, matches and origin of M
-#: rows, 3 x 4 B x M per alignment); a launch takes as many reads as fit.
-#: 256 MiB holds 16,384 reads x 12 adapters of 300 bp in one launch: the
-#: kernel has one thread per alignment, so it needs every alignment of a
-#: call in flight
+#: bound on the kernel's global band handoff (16 B a column of each
+#: alignment whose adapter takes more than one band); a launch takes as
+#: many reads as fit
 SCRATCH_BYTES = 256 << 20
 #: shared memory a block may use (the H100's 227 KB)
 MAX_SHARED = 232448
@@ -268,17 +268,60 @@ def batched_locate_plain(ref_masks, ref_lens, k_table, n_prefix,
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
+#: lanes per (read, adapter) of ``orc_locate_flags`` (two reads of one
+#: adapter a warp)
+LANES = 16
+#: the rows a lane of the kernel's instances: 4 holds the 59-mers, 5 a
+#: 70 bp bank in one band, 8 runs longer banks in bands of 128 rows
+ROWS_PER_LANE = (4, 5, 8)
+#: bytes of one handoff column (cost, matches, origin and a pad word)
+HAND_BYTES = 16
+
+
+def table_bytes(M: int) -> int:
+    """Shared memory of one block's tables: row m's budget by refstart
+    and the final column's by row (4 B x (M+1) each), and the adapter's
+    masks (M bytes)."""
+    return 8 * (M + 1) + M
+
+
+def n_bands(ref_lens, k: int) -> torch.Tensor:
+    """Bands of each adapter (rows 0..m in bands of 16 k rows)."""
+    return torch.as_tensor(ref_lens).to(torch.int64) // (LANES * k) + 1
+
+
+def handoff_slots(ref_lens, k: int) -> torch.Tensor:
+    """int32 [A]: each adapter's slot in the handoff scratch, in bank
+    order, or -1 for an adapter that fits one band (no handoff)."""
+    multi = n_bands(ref_lens, k) > 1
+    return torch.where(multi, torch.cumsum(multi, 0) - 1,
+                       -1).to(torch.int32)
+
+
+def choose_k(max_len: int) -> int:
+    """Rows a lane for a bank whose longest adapter has ``max_len`` bp:
+    the fewest of :data:`ROWS_PER_LANE` that hold every adapter in one
+    band, else 8: a band pads the rows past m up to its height, and
+    every band costs a pipeline fill of 15 steps."""
+    return next((k for k in ROWS_PER_LANE if LANES * k > max_len),
+                ROWS_PER_LANE[-1])
+
+
+def chunk_reads(n_slots: int, L: int, B: int) -> int:
+    """Reads a launch takes: as many as keep the handoff scratch
+    (``n_slots`` adapters of more than one band x L columns x 16 B per
+    read) within :data:`SCRATCH_BYTES`, at least one; every read where no
+    adapter needs the scratch."""
+    per_read = n_slots * L * HAND_BYTES
+    if per_read == 0:
+        return B
+    return max(1, min(B, SCRATCH_BYTES // per_read))
+
+
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _build.load("batched", "orc_locate_flags",
-                       [vp] * 6 + [ci] * 7 + [vp, vp, vp]).orc_locate_flags
-
-
-def chunk_reads(A: int, M: int, B: int) -> int:
-    """Reads a launch takes: as many as keep the column scratch (3 x 4 B
-    x M rows per alignment, A alignments a read) within
-    :data:`SCRATCH_BYTES`, at least one."""
-    return max(1, min(B, SCRATCH_BYTES // max(1, 12 * M * A)))
+                       [vp] * 7 + [ci] * 9 + [vp, vp, vp]).orc_locate_flags
 
 
 def batched_locate_cuda(ref_masks, ref_lens, k_table, n_prefix,
@@ -286,20 +329,23 @@ def batched_locate_cuda(ref_masks, ref_lens, k_table, n_prefix,
                         min_overlap: int = DEFAULT_MIN_OVERLAP
                         ) -> torch.Tensor:
     """Launch ``orc_locate_flags`` of ``csrc/batched.cu`` on the current
-    stream, in chunks of :func:`chunk_reads` reads; same contract and
-    output as :func:`batched_locate_plain`. CUDA tensors only."""
+    stream with :func:`choose_k` rows a lane, in chunks of
+    :func:`chunk_reads` reads; same contract and output as
+    :func:`batched_locate_plain`. CUDA tensors only."""
     flags = _check_flags(flags)
     ref_masks, ref_lens, k_table, n_prefix, read_masks, read_lens = _inputs(
         ref_masks, ref_lens, k_table, n_prefix, read_masks, read_lens)
+    A, M = ref_masks.shape
+    B, L = read_masks.shape
+    if table_bytes(M) > MAX_SHARED:
+        raise ValueError(f"adapters of {M} bp: the kernel's tables take "
+                         f"{table_bytes(M)} B of shared memory, over "
+                         f"{MAX_SHARED}")
     dev = read_masks.device
     if dev.type != "cuda":
         raise ValueError(f"batched_locate_cuda takes CUDA tensors, not {dev}")
-    A, M = ref_masks.shape
-    B, L = read_masks.shape
-    shared = 8 * (M + 1) + M
-    if shared > MAX_SHARED:
-        raise ValueError(f"adapters of {M} bp: the kernel's tables take "
-                         f"{shared} B of shared memory, over {MAX_SHARED}")
+    lens_host = ref_lens.cpu()
+    k = choose_k(int(lens_host.max()))
     i32 = torch.int32
     ref_masks = ref_masks.contiguous()
     ref_lens = ref_lens.to(i32).contiguous()
@@ -310,8 +356,12 @@ def batched_locate_cuda(ref_masks, ref_lens, k_table, n_prefix,
     out = torch.empty((len(FIELDS), B, A), dtype=i32, device=dev)
     if B == 0:
         return out
-    nb = chunk_reads(A, M, B)
-    scratch = torch.empty(3 * max(M, 1) * A * nb, dtype=i32, device=dev)
+    slots = handoff_slots(lens_host, k)
+    n_slots = int((slots >= 0).sum())
+    nb = chunk_reads(n_slots, L, B)
+    scratch = (torch.empty((n_slots * nb * L * HAND_BYTES,), dtype=torch.uint8,
+                           device=dev) if n_slots else None)
+    slots = slots.to(dev)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -319,8 +369,10 @@ def batched_locate_cuda(ref_masks, ref_lens, k_table, n_prefix,
             err = fn(reads_T.data_ptr(), read_lens.data_ptr(),
                      ref_masks.data_ptr(), ref_lens.data_ptr(),
                      k_table.data_ptr(), n_prefix.data_ptr(),
-                     B, A, M, b0, min(nb, B - b0), flags, min_overlap,
-                     scratch.data_ptr(), out.data_ptr(), stream)
+                     slots.data_ptr(), B, A, M, L, b0, min(nb, B - b0),
+                     flags, min_overlap, k,
+                     scratch.data_ptr() if scratch is not None else None,
+                     out.data_ptr(), stream)
             _build.check(err, "batched locate kernel")
             LAUNCHES.add(MODE_NAMES.get(flags, "other"))
     return out
