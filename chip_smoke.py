@@ -2,12 +2,16 @@
 against its plain PyTorch version on the card, then drive the COI main
 path (run_all) on a synthetic 96-bin plate, the rRNA path with the
 Kogge-Stone locate on a synthetic 96-bin rRNA plate, the batched locate
-through the demux on lengthened banks, a traced run_all and stages
-06-09 through the CLI, and check what comes out.
+through the demux on lengthened banks, a traced run_all, stages 06-09
+and prewarm through the CLI, and the multi-device path over every
+visible card, and check what comes out.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases 6,14   # setup and these phases only
 
-Needs one CUDA device and the CUDA toolkit (nvcc); imports no JAX.
+Needs one CUDA device and the CUDA toolkit (nvcc); imports no JAX. With
+more cards, phase 14 stripes over all of them. ``--phases`` makes a
+check call: it prints no kernel line and no result line.
 Phases:
   1. setup: card name and power limit, versions, kernel build time;
   2. wavefront locate kernel (one warp per read and adapter) vs plain:
@@ -87,10 +91,29 @@ Phases:
      counts per kernel family; prints the trace's size, the device's busy
      share (the union of kernel intervals over the traced window) and the
      device time per kernel;
- 13. stages 06-09 through the CLI: extract-max coi on phase 6's tree and
-     ribo on phase 10's, summary on both, blast-top5, reorganise and
-     prep-anchors on small inputs written here; figures only where
-     matplotlib is installed.
+ 13. stages 06-09 and prewarm through the CLI: extract-max coi on phase
+     6's tree and ribo on phase 10's, summary on both, blast-top5,
+     reorganise and prep-anchors on small inputs written here; figures
+     only where matplotlib is installed; prewarm (a fused demux per
+     read-length bucket and a dense Myers per length bucket on every
+     card);
+ 14. the multi-device path over a mesh of every visible card (cuda:0
+     listed twice on a one-card host, where the stripes run in order on
+     one stream): (a) decide_multi on 65,536 COI reads at L 640 equal to
+     decide, to the plain path on 4,096 of them, and decide_packed
+     equal, with reads/s over one card (one and two stripes) and over
+     every card; (b) sharded_dual_demux_step and sharded_demux_step on
+     70 bp banks at 16,384 reads equal to the steps on cuda:0 alone,
+     histograms consistent; (c) device_parallel_pairwise dense and gated
+     on a 1,000-read COI bin (W 17) and a 400-read rRNA bin (W 112)
+     equal to the Myers entry points on cuda:0, sharded_pairwise_step
+     on the COI bin, each stripe's time on its card; (d) run_all with
+     use_mesh and cli run-all --mesh on phase 6's plate: every file
+     byte-identical to phase 6's but the timing files and results.txt's
+     pairs_ lines, launches per kernel and device; (e) two processes on
+     localhost (gloo on one card, nccl with a card a rank on more): the
+     all-reduced histogram, host_file_shard's partition and the merged
+     consensusfile.fasta against one process.
 Phase 1 prints each kernel source's ptxas report (registers, stack
 frame). Prints a JSON line of per-kernel numbers, the card line, and last
 the result line. Exits non-zero, printing no result, when any phase fails or
@@ -695,12 +718,14 @@ class Smoke:
         return fq, len(recs)
 
     def run_all(self, out, fq, n_reads, amplicon, big, backend="native",
-                trace=None):
+                trace=None, extra=()):
         """``cli run-all --device cuda`` in this process with the given
-        consensus pileup backend (and ``--trace trace`` when given), every
-        launch counter set to 0 just before; returns (report, launch
-        counts). The batched locate must not launch: every bank of the
-        smoke plates is of 59-mers, under the 63 bp of its route."""
+        consensus pileup backend (and ``--trace trace`` when given, and
+        the arguments ``extra``), every launch counter set to 0 just
+        before; returns (report, launch counts), and keeps the launches
+        per device in ``self.by_device``. The batched locate must not
+        launch: every bank of the smoke plates is of 59-mers, under the 63
+        bp of its route."""
         import contextlib
         import io
         import shutil
@@ -714,6 +739,7 @@ class Smoke:
                 "--adapters-dir", self.adapters, "--device", "cuda"]
         if trace:
             argv += ["--trace", trace]
+        argv += list(extra)
         log = io.StringIO()      # the CLI narrates stages, then the report
         counters = {"locate": L.LAUNCHES, "myers": M.LAUNCHES,
                     "pileup": P.LAUNCHES, "viterbi": H.LAUNCHES,
@@ -729,13 +755,15 @@ class Smoke:
             wall = time.perf_counter() - t0
             counts = {f"{k}_{e}": n for k, c in counters.items()
                       for e, n in c.snapshot().items()}
+            self.by_device = per_device(counters)
         finally:
             consensus.PILEUP_BACKEND = saved
         assert rc == 0, rc
         rep = json.loads(log.getvalue().strip().splitlines()[-1])
-        print(f"   tpu_orc_torch.cli run-all -a {amplicon} --device cuda (in "
-              f"process), locate {L.LOCATE_IMPL}, pileup backend {backend}: "
-              f"{n_reads} reads, {wall:.1f} s wall")
+        print(f"   tpu_orc_torch.cli {' '.join(argv[:1] + list(extra))} -a "
+              f"{amplicon} --device cuda (in process), locate "
+              f"{L.LOCATE_IMPL}, pileup backend {backend}: {n_reads} reads, "
+              f"{wall:.1f} s wall")
         print(f"   launch counts during run_all: {counts}")
         on = {k: n for k, n in counts.items() if k.startswith("batched_")
               and n}
@@ -757,11 +785,11 @@ class Smoke:
                       f" s (4 bin workers)")
         return rep, counts
 
-    def coi_run(self, out, backend, trace=None):
+    def coi_run(self, out, backend, trace=None, extra=()):
         if not hasattr(self, "fq"):
             self.fq, self.n_reads = self.plate()
         return self.run_all(out, self.fq, self.n_reads, "COI", self.big,
-                            backend, trace)
+                            backend, trace, extra)
 
     def main_path(self):
         from tpu_orc_torch import synthetic
@@ -1406,6 +1434,489 @@ class Smoke:
         else:
             run("figures", "-o", os.path.join(d, "figs"), "--blast-csv",
                 os.path.join(d, "curated.csv"))
+        # prewarm: the build (done by phase 1, so ~0 s here), then one
+        # fused demux per read-length bucket and one dense Myers per
+        # length bucket on every card
+        got = run("prewarm", "--adapters-dir", self.adapters)
+        cards = [f"cuda:{k}" for k in range(self.torch.cuda.device_count())]
+        want = {"nvcc_build"} | {f"fused_demux_L{L}_B2048_{c}"
+                                 for L in (384, 512, 640) for c in cards} \
+            | {f"myers_NW_L{L}_{c}" for L in (512, 4096, 8192)
+               for c in cards}
+        assert set(got) == want, sorted(got)
+
+    # -- phase 14 --------------------------------------------------------
+    def mesh_setup(self):
+        """The mesh of phase 14: every visible card, or cuda:0 listed
+        twice where only one card is visible (striping, padding and the
+        gather run all the same; the stripes then run in order on the
+        card's stream)."""
+        torch = self.torch
+        from tpu_orc_torch.dist.sharded import make_mesh
+        self.n_cards = torch.cuda.device_count()
+        self.mesh = (make_mesh() if self.n_cards > 1
+                     else make_mesh(devices=["cuda:0", "cuda:0"]))
+        self.mesh_devs = [str(d) for d in self.mesh.devices.flat]
+        how = ("stripes on distinct cards, launched together" if
+               self.n_cards > 1 else "one card listed twice: its stripes "
+               "run one after another on its stream, not concurrently")
+        print(f"   mesh {self.mesh_devs} ({self.n_cards} visible cards): "
+              f"{how}")
+
+    def mesh_banks(self, head=0):
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.demux.adapters import AdapterBank
+        b = synthetic.banks(head=head)
+        return (AdapterBank.from_pairs(b["sp5"], 0.1, "cuda"),
+                AdapterBank.from_pairs(b["sp27rc"], 0.1, "cuda"))
+
+    def mesh_decide(self):
+        """(a) decide_multi on a flowcell chunk of 65,536 COI reads at the
+        read-length bucket ``assign`` picks (L 640): the 8 vectors of
+        single-device ``decide``; on 4,096 of them the plain path's;
+        ``decide_packed`` the same; reads/s over one card (one stripe, two
+        stripes) and over every card."""
+        import numpy as np
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.align import locate as L
+        from tpu_orc_torch.align.locate import locate_plain
+        from tpu_orc_torch.demux.fused import FusedDemux, _pick_len
+        from tpu_orc_torch.io import encode
+        sp5, sp27 = self.mesh_banks()
+        t0 = time.perf_counter()
+        recs, _ = synthetic.make_plate(683, seed=31, insert_len=450)
+        seqs = [r.seq for r in recs[:65536]]
+        Lb = _pick_len(max(len(x) for x in seqs), 256)   # assign's bucket
+        amat, lens = encode.ascii_matrix(seqs, max_len=Lb)
+        masks = encode.read_masks_matrix(amat, lens)
+        print(f"   {len(seqs)} reads made and packed at L {Lb} in "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        assert Lb == 640, Lb
+        fd = FusedDemux(sp5, sp27)
+        want = fd.decide(masks, lens)
+        L.LAUNCHES.reset()
+        got = fd.decide_multi(masks, lens, self.mesh_devs)
+        per = {d: n for d, n in L.LAUNCHES.by_device().items()}
+        for name, g, w in zip(want._fields, got, want):
+            assert np.array_equal(g, w), f"decide_multi {name} differs"
+        assert sorted(per) == sorted(set(self.mesh_devs)), per
+        n = 4096
+        plain = FusedDemux(sp5, sp27, locate=locate_plain).decide(
+            masks[:n], lens[:n])
+        for name, g, w in zip(want._fields, got, plain):
+            assert np.array_equal(g[:n], w), f"{name} differs from plain"
+        packed = fd.decide_packed(encode.codes_matrix(amat, lens), lens)
+        for name, g, w in zip(want._fields, packed, want):
+            assert np.array_equal(g, w), f"decide_packed {name} differs"
+        print(f"   decide_multi over {self.mesh_devs}: 8 vectors equal to "
+              f"decide on cuda:0 ({int((got.idx2 >= 0).sum())} reads binned"
+              f"), to the plain path on the first {n}; decide_packed equal; "
+              f"locate launches by device {per}")
+        configs = [("1 card, 1 stripe", ["cuda:0"]),
+                   ("1 card, 2 stripes", ["cuda:0", "cuda:0"])]
+        if self.n_cards > 1:
+            configs.append((f"{self.n_cards} cards",
+                            [f"cuda:{k}" for k in range(self.n_cards)]))
+        rates = {}
+        for label, devs in configs:
+            ms = host_ms(lambda devs=devs: fd.decide_multi(masks, lens, devs),
+                         reps=3)
+            rates[label] = len(seqs) / ms * 1e3
+            print(f"   decide_multi, {label}: {ms:.1f} ms a chunk "
+                  f"(host clock, upload to fetch), {rates[label]:.0f} "
+                  f"reads/s")
+        self.mesh_rates = rates
+
+    def mesh_sharded_demux(self):
+        """(b) sharded_dual_demux_step and sharded_demux_step on 70 bp
+        banks (the batched kernel's route) at 16,384 reads: equal to the
+        same steps on cuda:0 alone; the histograms sum to the reads and
+        agree with the assignments."""
+        import numpy as np
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.align import batched as BL
+        from tpu_orc_torch.dist import sharded as S
+        sp5, sp27 = self.mesh_banks(head=11)
+        recs, _ = synthetic.make_plate(171, seed=37, insert_len=330, head=11)
+        masks, lens = synthetic.read_masks([r.seq for r in recs[:16384]],
+                                           640)
+        one = S.make_mesh(devices=["cuda:0"])
+        BL.LAUNCHES.reset()
+        got = S.sharded_dual_demux_step(self.mesh, sp5, sp27, masks, lens)
+        per = BL.LAUNCHES.by_device()
+        want = S.sharded_dual_demux_step(one, sp5, sp27, masks, lens)
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert np.array_equal(g, w), f"dual step output {k} differs"
+        assert sorted(per) == sorted(set(self.mesh_devs)), per
+        for idx, hist in ((got[0], got[8]), (got[3], got[9])):
+            assert int(hist.sum()) == len(lens)
+            assert all(int(hist[a + 1]) == int((idx == a).sum())
+                       for a in range(-1, len(hist) - 1))
+        assert (got[3] >= 0).sum() > 0.9 * len(lens), "too few binned"
+        got1 = S.sharded_demux_step(self.mesh, sp5, masks, lens)
+        want1 = S.sharded_demux_step(one, sp5, masks, lens)
+        for k, (g, w) in enumerate(zip(got1, want1)):
+            assert np.array_equal(g, w), f"demux step output {k} differs"
+        assert int(got1[4].sum()) == len(lens)
+        ms = {label: host_ms(lambda m=m: S.sharded_dual_demux_step(
+            m, sp5, sp27, masks, lens), reps=3)
+            for label, m in (("cuda:0", one), (str(self.mesh_devs),
+                                               self.mesh))}
+        print(f"   sharded_dual_demux_step and sharded_demux_step, 16,384 "
+              f"reads, 70 bp banks: equal to cuda:0 alone, histograms "
+              f"{got[8].tolist()} / {got[9].tolist()}; batched launches by "
+              f"device {per}; dual step ms (host clock) {ms}")
+
+    def mesh_pairwise(self):
+        """(c) device_parallel_pairwise, dense and gated, on the 1,000-read
+        COI bin (W 17) and the 400-read rRNA bin (W 112): equal on every
+        gated entry to single-device distances_pairs / distances on
+        cuda:0; sharded_pairwise_step on the COI bin; each stripe's time
+        on its card."""
+        import random
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.align import myers as M
+        from tpu_orc_torch.cluster.scoring import pack_codes
+        from tpu_orc_torch.dist import sharded as S
+        from tpu_orc_torch.io import encode
+        rnd = random.Random(3)
+        tmpls = ["".join(rnd.choice("ACGT") for _ in range(500))
+                 for _ in range(4)]
+        seqs = sorted((synthetic.mutate(rnd, tmpls[k % 4], 0.03)
+                       for k in range(1000)), key=len)
+        coi = synthetic.codes(seqs, -(-max(len(x) for x in seqs) // 32) * 32)
+        _, recs, _ = self.rrna_plate()
+        rc, rl = pack_codes(sorted((encode.encode_codes(r.seq[:3584])
+                                    for r in recs[:400]), key=len))
+        devs = self.mesh_devs
+        for label, (pc, pl) in (("COI 1,000 reads", coi),
+                                ("rRNA 400 reads", (rc, rl))):
+            n = len(pl)
+            lo, hi = np.minimum.outer(pl, pl), np.maximum.outer(pl, pl)
+            gate = (np.arange(n)[:, None] < np.arange(n)[None, :]) & \
+                (lo * 1.05 >= hi)
+            W = -(-pc.shape[1] // 32)
+            TI, TJ = M.tile_shape(W)
+            P, T = -(-n // TI) * TI, -(-n // TJ) * TJ
+            gf = np.zeros((P, T), bool)
+            gf[:n, :n] = gate
+            need = gf.reshape(P // TI, TI, T // TJ, TJ).any(axis=(1, 3))
+            want_g, _ = M.distances_pairs(pc, pl, pc, pl,
+                                          np.argwhere(need).astype(np.int32),
+                                          device="cuda:0", fetch_pos=False)
+            want_d, _ = M.distances(pc, pl, pc, pl, device="cuda:0",
+                                    fetch_pos=False)
+            M.LAUNCHES.reset()
+            got_g = S.device_parallel_pairwise(devs, pc, pl, pc, pl,
+                                               gate=gate)
+            got_d = S.device_parallel_pairwise(devs, pc, pl, pc, pl)
+            per = M.LAUNCHES.by_device()
+            assert np.array_equal(got_g[gate], want_g[:n, :n][gate]), \
+                f"{label}: gated stripes differ"
+            assert np.array_equal(got_d, want_d), \
+                f"{label}: dense stripes differ"
+            assert sorted(per) == sorted(set(devs)), per
+            if label.startswith("COI"):
+                got_s = S.sharded_pairwise_step(self.mesh, pc, pl, pc, pl)
+                assert np.array_equal(got_s, want_d), "pairwise step differs"
+            times = {k: self.stripe_ms(devs, pc, pl, g)
+                     for k, g in (("gated", gate), ("dense", None))}
+            walls = {k: host_ms(lambda d=d, g=g: S.device_parallel_pairwise(
+                d, pc, pl, pc, pl, gate=g), reps=3)
+                for k, d, g in (("gated, cuda:0", ["cuda:0"], gate),
+                                (f"gated, {len(devs)} stripes", devs, gate),
+                                ("dense, cuda:0", ["cuda:0"], None),
+                                (f"dense, {len(devs)} stripes", devs, None))}
+            print(f"   device_parallel_pairwise, {label} at W {W}: gated "
+                  f"({int(gate.sum())} pairs, {int(need.sum())} tiles) and "
+                  f"dense equal to cuda:0 alone; Myers launches by device "
+                  f"{per}")
+            print(f"      each stripe's ms on its card (CUDA events, upload "
+                  f"and kernel, all stripes launched before any wait): "
+                  f"{times}; host-clock ms a call: {walls}")
+
+    def stripe_ms(self, devs, pc, pl, gate):
+        """ms of each stripe of device_parallel_pairwise on its own card:
+        CUDA events on the stripe's card before its upload and after its
+        launch, every stripe launched before any event is waited for (the
+        function's order); the median of 3 after a warm-up."""
+        torch = self.torch
+        from tpu_orc_torch.dist import sharded as S
+        n = len(pl)
+        stripe = -(-n // len(devs))
+
+        def once():
+            evs = []
+            for k, dev in enumerate(devs):
+                r0, r1 = k * stripe, min((k + 1) * stripe, n)
+                s = torch.cuda.current_stream(torch.device(dev))
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record(s)
+                S.pairwise_stripe(dev, pc[r0:r1], pl[r0:r1], pc, pl, "NW",
+                                  None if gate is None else gate[r0:r1])
+                b.record(s)
+                evs.append((a, b))
+            for _, b in evs:
+                b.synchronize()
+            return [a.elapsed_time(b) for a, b in evs]
+
+        once()
+        runs = [once() for _ in range(3)]
+        return [round(sorted(r[k] for r in runs)[1], 3)
+                for k in range(len(devs))]
+
+    def mesh_run_all(self):
+        """(d) run_all(use_mesh=True) and cli run-all --mesh on phase 6's
+        COI plate: every file byte-identical to phase 6's but
+        metrics.json, run_report.json and results.txt's pairs_ lines; the
+        walls beside phase 6's, and each kernel's launches per device."""
+        import contextlib
+        import io
+        import shutil
+        from tpu_orc_torch.align import batched as BL
+        from tpu_orc_torch.align import locate as L, myers as M
+        from tpu_orc_torch.dist import sharded as S
+        from tpu_orc_torch.pipeline import stages
+        saved = stages.PipelineConfig.mesh
+        if self.n_cards == 1:
+            # make_mesh() is the one card: list it twice, as phase 14 does
+            stages.PipelineConfig.mesh = lambda cfg: (
+                S.make_mesh(devices=self.mesh_devs) if cfg.use_mesh
+                else None)
+        try:
+            out = os.path.join(WORK, "plate", "mesh_run_all")
+            shutil.rmtree(out, ignore_errors=True)
+            counters = {"locate": L.LAUNCHES, "myers": M.LAUNCHES,
+                        "batched": BL.LAUNCHES}
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rep = stages.run_all(self.fq, out, "plate", "COI",
+                                     stages.PipelineConfig(
+                                         self.adapters, device="cuda",
+                                         use_mesh=True))
+            wall = time.perf_counter() - t0
+            per = per_device(counters)
+            print(f"   run_all(use_mesh=True): {wall:.1f} s wall, "
+                  f"{rep['metrics']['total_wall_s']} s of stage time "
+                  f"(phase 6: {self.phase6_wall} s); launches by device "
+                  f"{per}")
+            self.check_mesh_tree(out, per)
+            out2 = os.path.join(WORK, "plate", "mesh_cli")
+            rep2, _ = self.coi_run(out2, "native", extra=("--mesh",))
+            print(f"   cli run-all --mesh: {rep2['metrics']['total_wall_s']}"
+                  f" s of stage time; launches by device {self.by_device}")
+            self.check_mesh_tree(out2, self.by_device)
+        finally:
+            stages.PipelineConfig.mesh = saved
+
+    def check_mesh_tree(self, out, per):
+        """Phase 6's files, pairs_ lines of results.txt aside; every mesh
+        device launched the demux locates and Myers."""
+        a, b = read_tree(self.native_out), read_tree(out)
+        skip = ("metrics.json", "run_report.json")
+        a = {k: v for k, v in a.items() if os.path.basename(k) not in skip}
+        b = {k: v for k, v in b.items() if os.path.basename(k) not in skip}
+        assert sorted(a) == sorted(b), "mesh run_all tree differs"
+        differ = 0
+        for rel in a:
+            x, y = a[rel], b[rel]
+            if os.path.basename(rel) == "results.txt":
+                keep = lambda t: [ln for ln in t.splitlines()
+                                  if not ln.startswith(b"pairs_")]
+                differ += x != y
+                x, y = keep(x), keep(y)
+            assert x == y, f"{rel} differs on the mesh"
+        for dev in set(self.mesh_devs):
+            n = per.get(dev, {})
+            assert n.get("locate_front") and n.get("locate_back"), (dev, n)
+            assert sum(v for k, v in n.items() if k.startswith("myers_")), \
+                (dev, n)
+        print(f"   {len(a)} files byte-identical to phase 6's (but "
+              f"metrics.json and run_report.json; {differ} results.txt "
+              f"differ in their pairs_ lines only)")
+
+    def mesh_processes(self):
+        """(e) two processes on localhost: gloo with both ranks on cuda:0
+        on a one-card host, nccl with rank r on cuda:r on two cards or
+        more. The all-reduced histogram equals the whole batch's,
+        host_file_shard partitions the files, and the coordinator's
+        consensusfile.fasta equals a one-process run over the same bins."""
+        import glob
+        import random
+        import shutil
+        import socket
+        import numpy as np
+        from tpu_orc_torch.cluster.engine import AmpliconSorter, SorterConfig
+        from tpu_orc_torch.cluster.output import write_barcode_consensus
+        from tpu_orc_torch.cluster.scoring import DeviceScorer
+        from tpu_orc_torch.dist import sharded as S
+        from tpu_orc_torch.io.fastq import Record, read_records, write_records
+        from tpu_orc_torch import synthetic
+        d = os.path.join(WORK, "multihost")
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(os.path.join(d, "bins_in"))
+        sp5, _ = self.mesh_banks()
+        recs, _ = synthetic.make_plate(43, seed=41, insert_len=330)
+        masks, lens = synthetic.read_masks([r.seq for r in recs[:4096]], 512)
+        np.save(os.path.join(d, "masks.npy"), masks)
+        np.save(os.path.join(d, "lens.npy"), lens)
+        rnd = random.Random(99)
+        for b in range(3):
+            tm = ["".join(rnd.choice("ACGT") for _ in range(k))
+                  for k in (360, 370)]
+            rs = [synthetic.mutate(rnd, tm[i >= 12], 0.02) for i in range(24)]
+            write_records(os.path.join(d, "bins_in",
+                                       f"SP27_00{b + 1}_SP5_001.fastq"),
+                          [Record(f"b{b}r{i}", f"b{b}r{i}", s, "I" * len(s))
+                           for i, s in enumerate(rs)], fmt="fastq")
+        ref = []
+        for path in sorted(glob.glob(os.path.join(d, "bins_in", "*.fastq"))):
+            barcode = os.path.splitext(os.path.basename(path))[0]
+            srt = AmpliconSorter(SorterConfig(min_length=300, seed=7),
+                                 scorer=DeviceScorer(device="cuda:0"),
+                                 device="cuda:0")
+            result = srt.sort_records(list(read_records(path)))
+            p = write_barcode_consensus(result, os.path.join(d, "ref"),
+                                        barcode, "e2e")
+            with open(p) as fh:
+                ref.append(fh.read())
+        ref = "".join(ref)
+        assert ref.count(">") >= 3, ref
+        whole = S.sharded_demux_step(S.make_mesh(devices=["cuda:0"]), sp5,
+                                     masks, lens)
+        backend = "nccl" if self.n_cards > 1 else "gloo"
+        worker = os.path.join(d, "worker.py")
+        with open(worker, "w") as fh:
+            fh.write(MULTIHOST_WORKER)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1")
+        for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                  "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            env.pop(k, None)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, worker, f"127.0.0.1:{port}", str(pid), backend,
+             d], env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for pid in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, o in zip(procs, outs):
+            assert p.returncode == 0, f"worker failed:\n{o[-4000:]}"
+        res = []
+        for pid in range(2):
+            with open(os.path.join(d, f"result_{pid}.json")) as fh:
+                res.append(json.load(fh))
+        print(f"   2 processes ({backend}), {time.perf_counter() - t0:.1f} s "
+              f"wall: " + "; ".join(
+                  f"rank {r['rank']} on {r['mesh']}, launches {r['launches']}"
+                  for r in res))
+        want_devs = ([["cuda:0"], ["cuda:1"]] if self.n_cards > 1
+                     else [["cuda:0"], ["cuda:0"]])
+        assert [r["mesh"] for r in res] == want_devs, res
+        assert [r["world"] for r in res] == [2, 2]
+        assert res[0]["is_coord"] and not res[1]["is_coord"]
+        assert res[0]["hist"] == res[1]["hist"] == whole[4].tolist()
+        idx = np.concatenate([np.load(os.path.join(d, f"idx_{p}.npy"))
+                              for p in range(2)])
+        assert np.array_equal(idx, whole[0]), "per-rank assignments differ"
+        files = sorted(res[0]["files"] + res[1]["files"])
+        assert files == [f"bin_{i:02d}.fastq" for i in range(7)]
+        assert not set(res[0]["files"]) & set(res[1]["files"])
+        assert len(res[0]["bins"]) + len(res[1]["bins"]) == 3
+        assert not set(res[0]["bins"]) & set(res[1]["bins"])
+        with open(os.path.join(d, "out", "consensusfile.fasta")) as fh:
+            got = fh.read()
+        assert got == ref, "merged consensusfile.fasta differs"
+        print(f"   all-reduced histogram = the whole batch's "
+              f"({sum(whole[4].tolist())} reads); files partitioned "
+              f"{res[0]['files']} / {res[1]['files']}; consensusfile.fasta "
+              f"({ref.count('>')} groups) byte-identical to one process")
+
+
+#: worker of phase 14 (e): one process of two on localhost
+MULTIHOST_WORKER = r"""
+import glob, json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from tpu_orc_torch.align import batched as BL, myers as M
+from tpu_orc_torch.cluster.engine import AmpliconSorter, SorterConfig
+from tpu_orc_torch.cluster.output import write_barcode_consensus
+from tpu_orc_torch.cluster.scoring import DeviceScorer
+from tpu_orc_torch.demux.adapters import AdapterBank
+from tpu_orc_torch.dist.multihost import (global_mesh, host_file_shard,
+                                          init_multihost, is_coordinator)
+from tpu_orc_torch.dist.sharded import sharded_demux_step
+from tpu_orc_torch.io.fastq import read_records
+from tpu_orc_torch import synthetic
+
+coord, pid, backend, d = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rank, world = init_multihost(coord, 2, pid, backend=backend)
+mesh = global_mesh()
+dev = str(mesh.devices.flat[0])
+masks = np.load(os.path.join(d, "masks.npy"))
+lens = np.load(os.path.join(d, "lens.npy"))
+half = len(masks) // world
+b = synthetic.banks()
+sp5 = AdapterBank.from_pairs(b["sp5"], 0.1, dev)
+out = sharded_demux_step(mesh, sp5, masks[rank * half:(rank + 1) * half],
+                         lens[rank * half:(rank + 1) * half])
+np.save(os.path.join(d, f"idx_{rank}.npy"), out[0])
+bins = sorted(glob.glob(os.path.join(d, "bins_in", "*.fastq")))
+done = []
+for path in host_file_shard(bins):
+    barcode = os.path.splitext(os.path.basename(path))[0]
+    srt = AmpliconSorter(SorterConfig(min_length=300, seed=7),
+                         scorer=DeviceScorer(device=dev), device=dev)
+    result = srt.sort_records(list(read_records(path)))
+    write_barcode_consensus(result, os.path.join(d, "out", "bins"),
+                            barcode, "e2e")
+    done.append(barcode)
+dist.barrier()
+if is_coordinator():
+    parts = []
+    for path in bins:
+        barcode = os.path.splitext(os.path.basename(path))[0]
+        with open(os.path.join(d, "out", "bins",
+                               f"{barcode}_consensus_e2e.fasta")) as fh:
+            parts.append(fh.read())
+    with open(os.path.join(d, "out", "consensusfile.fasta"), "w") as fh:
+        fh.write("".join(parts))
+dist.barrier()
+res = {"rank": rank, "world": world, "mesh": [str(x) for x in mesh.devices.flat],
+       "is_coord": is_coordinator(), "hist": out[4].tolist(),
+       "files": host_file_shard([f"bin_{i:02d}.fastq" for i in range(7)]),
+       "bins": done,
+       "launches": {"batched": BL.LAUNCHES.by_device(),
+                    "myers": M.LAUNCHES.by_device()}}
+dist.destroy_process_group()
+with open(os.path.join(d, f"result_{rank}.json"), "w") as fh:
+    json.dump(res, fh)
+print("ok", rank)
+"""
+
+
+def per_device(counters):
+    """{device: {counter_key: launches}} over several launch counters
+    ({name: LaunchCounter}), keys as in ``Smoke.run_all``'s counts."""
+    out = {}
+    for k, c in counters.items():
+        for dev, n in c.by_device().items():
+            for e, v in n.items():
+                out.setdefault(dev, {})[f"{k}_{e}"] = v
+    return {d: dict(sorted(n.items())) for d, n in sorted(out.items())}
 
 
 def trace_family(name: str) -> str:
@@ -1440,8 +1951,16 @@ def union_us(events) -> float:
     return total
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="GPU smoke run of "
+                                 "tpu_orc_torch (see the module docstring)")
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases after setup, e.g. '6,14' "
+                         "(a check call: it prints no kernel line and no "
+                         "result line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1452,36 +1971,59 @@ def main() -> int:
         print(f"chip_smoke: tpu_orc_torch not importable: {e}",
               file=sys.stderr)
         return 3
+    only = None if args.phases is None else set(args.phases.split(","))
     os.makedirs(WORK, exist_ok=True)
     s = Smoke()
     t0 = time.perf_counter()
+
+    def phase(name, fn, needs=()):
+        """Run phase ``name`` (its number first) unless ``--phases`` left
+        it out; a phase whose ``needs`` failed fails unrun."""
+        if only is not None and name.split()[0].rstrip("abcde") not in only:
+            return
+        if set(needs) & set(s.failed):
+            s.failed.append(f"{name} (not run)")
+            return
+        s.phase(name, fn)
+
     s.phase("1 setup", s.setup)
     if s.failed:
         return 1
-    s.phase("2 locate kernel vs plain", s.locate)
-    s.phase("3 myers kernel vs plain", s.myers)
-    s.phase("4 fused demux kernel path vs plain path", s.fused)
-    s.phase("5 pileup kernel vs plain", s.pileup)
-    s.phase("6 run_all COI main path", s.main_path)
-    if "6 run_all COI main path" not in s.failed:
-        s.phase("7 run_all with the device consensus pileup",
-                s.device_path)
-    s.phase("8 KS locate kernel vs plain", s.locate_ks)
-    s.phase("9 Viterbi kernel vs plain", s.viterbi)
-    s.phase("10 run_all RNA plate with the KS locate", s.rrna_path)
-    s.phase("11 batched locate kernel vs plain, and stage_demux on 70 bp "
-            "banks", s.batched)
-    if "6 run_all COI main path" not in s.failed:
-        s.phase("12 run-all --trace on the COI plate", s.traced)
-    if not {"6 run_all COI main path",
-            "10 run_all RNA plate with the KS locate"} & set(s.failed):
-        s.phase("13 stages 06-09 through the CLI", s.downstream)
-    else:
-        s.failed.append("13 stages 06-09 through the CLI (not run)")
+    p6 = "6 run_all COI main path"
+    p10 = "10 run_all RNA plate with the KS locate"
+    phase("2 locate kernel vs plain", s.locate)
+    phase("3 myers kernel vs plain", s.myers)
+    phase("4 fused demux kernel path vs plain path", s.fused)
+    phase("5 pileup kernel vs plain", s.pileup)
+    phase(p6, s.main_path)
+    phase("7 run_all with the device consensus pileup", s.device_path,
+          [p6])
+    phase("8 KS locate kernel vs plain", s.locate_ks)
+    phase("9 Viterbi kernel vs plain", s.viterbi)
+    phase(p10, s.rrna_path)
+    phase("11 batched locate kernel vs plain, and stage_demux on 70 bp "
+          "banks", s.batched)
+    phase("12 run-all --trace on the COI plate", s.traced, [p6])
+    phase("13 stages 06-09 and prewarm through the CLI", s.downstream,
+          [p6, p10])
+    p14 = "14 multi-device path: mesh"
+    phase(p14, s.mesh_setup)
+    phase("14a decide_multi and decide_packed", s.mesh_decide, [p14])
+    phase("14b sharded demux steps on 70 bp banks", s.mesh_sharded_demux,
+          [p14])
+    phase("14c device_parallel_pairwise and sharded_pairwise_step",
+          s.mesh_pairwise, [p14])
+    phase("14d run_all and cli run-all on the mesh", s.mesh_run_all,
+          [p14, p6])
+    phase("14e two processes on localhost", s.mesh_processes, [p14])
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"chip_smoke: failed phases: {s.failed}", file=sys.stderr)
         return 1
+    if only is not None:
+        print(f"chip_smoke: phases {sorted(only)} ok (a check call: no "
+              f"result line)")
+        return 0
     print(json.dumps({"kernels": list(s.kernels.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

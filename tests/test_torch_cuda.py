@@ -685,3 +685,101 @@ def test_demux_routes_long_banks_to_batched_kernel(cuda):
             assert not any(L.LAUNCHES.snapshot().values())
     assert [(a.adapter, a.rc, a.trimmed.seq, a.err) for a in got["cuda"]] \
         == [(a.adapter, a.rc, a.trimmed.seq, a.err) for a in got["cpu"]]
+
+
+# ---------------------------------------------------------------------------
+# the multi-device path: stripes per card
+# ---------------------------------------------------------------------------
+
+def _cards(cuda, at_least=1):
+    """Every card, or cuda:0 listed twice on a one-card host (stripes run
+    one after another there); skips below ``at_least`` cards."""
+    n = torch.cuda.device_count()
+    if n < at_least:
+        pytest.skip(f"needs {at_least} CUDA devices, the host has {n}")
+    return [f"cuda:{k}" for k in range(n)] if n > 1 else ["cuda:0"] * 2
+
+
+def _launched_on(counter):
+    return {d for d, n in counter.by_device().items() if any(n.values())}
+
+
+def test_decide_multi_stripes_equal_decide(cuda, tmp_path):
+    from tpu_orc_torch.dist.sharded import device_of
+    d = synthetic.write_adapter_dir(str(tmp_path))
+    sp5 = AdapterBank.from_fasta(
+        os.path.join(d, synthetic.FILES[0]), 0.1, "cuda")
+    sp27 = AdapterBank.from_fasta(
+        os.path.join(d, synthetic.FILES[1]), 0.1, "cuda")
+    recs, _ = synthetic.make_plate(10, seed=5, insert_len=200)
+    masks, lens = synthetic.read_masks([r.seq for r in recs[:901]], 384)
+    cards = _cards(cuda)
+    fd = fused.FusedDemux(sp5, sp27)
+    L.LAUNCHES.reset()
+    got = fd.decide_multi(masks, lens, cards)
+    assert _launched_on(L.LAUNCHES) == {str(device_of(c)) for c in cards}
+    want = fd.decide(masks, lens)
+    for name, g, w in zip(want._fields, got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    codes = encode.codes_matrix(*encode.ascii_matrix(
+        [r.seq for r in recs[:901]], max_len=384))
+    packed = fd.decide_packed(codes, lens)
+    for name, g, w in zip(want._fields, packed, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_sharded_dual_demux_step_on_cards_equals_plain(cuda):
+    """70 bp banks (the batched kernel's route) striped over the cards:
+    the CPU plain version's ten outputs."""
+    from tpu_orc_torch.dist import sharded as S
+    b = synthetic.banks(head=11)
+    sp5 = AdapterBank.from_pairs(b["sp5"], 0.1, "cuda")
+    sp27 = AdapterBank.from_pairs(b["sp27rc"], 0.1, "cuda")
+    recs, _ = synthetic.make_plate(4, seed=6, insert_len=150, head=11)
+    masks, lens = synthetic.read_masks([r.seq for r in recs[:384]], 384)
+    cards = _cards(cuda)
+    BL.LAUNCHES.reset()
+    got = S.sharded_dual_demux_step(S.make_mesh(devices=cards), sp5, sp27,
+                                    masks, lens)
+    assert _launched_on(BL.LAUNCHES) == {str(S.device_of(c)) for c in cards}
+    want = S.sharded_dual_demux_step(S.make_mesh(devices=["cpu"]), sp5,
+                                     sp27, masks, lens)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert int(got[8].sum()) == 384 and (got[3] >= 0).sum() > 300
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_device_parallel_pairwise_on_cards(cuda, gated):
+    from tpu_orc_torch.dist import sharded as S
+    rng = np.random.default_rng(7)
+    pat = rng.integers(0, 4, (300, 520)).astype(np.uint8)
+    plens = rng.integers(440, 521, 300).astype(np.int32)
+    gate = (rng.random((300, 300)) < 0.05) if gated else None
+    cards = _cards(cuda)
+    M.LAUNCHES.reset()
+    got = S.device_parallel_pairwise(cards, pat, plens, pat, plens,
+                                     gate=gate)
+    assert _launched_on(M.LAUNCHES) == {str(S.device_of(c)) for c in cards}
+    want, _ = M.distances(pat, plens, pat, plens, device="cuda:0")
+    sel = gate if gated else np.ones(want.shape, bool)
+    np.testing.assert_array_equal(got[sel], want[sel])
+
+
+def test_stripes_reach_cards_past_the_first(cuda):
+    """On a host of two or more cards a stripe on cuda:1.. reads and
+    writes that card's memory: each card's launches and results."""
+    from tpu_orc_torch.dist import sharded as S
+    cards = _cards(cuda, at_least=2)
+    rng = np.random.default_rng(8)
+    n = 16 * len(cards)               # two stripes of 8 rows a card
+    pat = rng.integers(0, 4, (n, 200)).astype(np.uint8)
+    plens = rng.integers(150, 201, n).astype(np.int32)
+    M.LAUNCHES.reset()
+    got = S.sharded_pairwise_step(S.make_mesh(devices=cards * 2), pat,
+                                  plens, pat, plens)
+    per = M.LAUNCHES.by_device()
+    assert sorted(per) == sorted(cards)
+    assert all(sum(per[c].values()) == 2 for c in cards)
+    want, _ = M.distances(pat, plens, pat, plens, device="cpu")
+    np.testing.assert_array_equal(got, want)

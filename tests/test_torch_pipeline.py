@@ -9,7 +9,8 @@ subcommand is held against tpu_orc's stage the same way. Another test
 runs the port's ``run_all`` in a fresh interpreter where neither
 ``import jax`` nor ``import tpu_orc`` works (the GPU host has no JAX, and
 the port imports nothing of tpu_orc), with each consensus pileup
-backend, and ``run_all -a RNA`` with the Kogge-Stone locate.
+backend, on a mesh (``use_mesh``), and ``run_all -a RNA`` with the
+Kogge-Stone locate.
 """
 import json
 import os
@@ -83,9 +84,12 @@ def test_run_all_refuses_unported_paths(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         port_stages.run_all(str(tmp_path / "x.fastq"), str(tmp_path), "d",
                             "COI", cfg)
+    # so is the multi-device path (dist/): run_all builds its mesh and
+    # goes on to read its input
     cfg.use_mesh = True
-    with pytest.raises(NotImplementedError):
-        port_stages.run_all("x.fastq", str(tmp_path), "d", "COI", cfg)
+    with pytest.raises(FileNotFoundError):
+        port_stages.run_all(str(tmp_path / "x.fastq"), str(tmp_path), "d",
+                            "COI", cfg)
 
 
 def test_cli_demux_equals_reference_stage(tmp_path, capsys):
@@ -133,6 +137,19 @@ def test_entry_points_default_to_cuda():
         {f.__qualname__: "cuda" for f in fns}
     assert engine.AmpliconSorter().scorer.device == "cuda"
     assert engine.AmpliconSorter(device="cpu").scorer.device == "cpu"
+    # the multi-device path: a mesh is every card unless devices are
+    # named, a scorer given a one-device mesh scores on the card, and
+    # the process group's collectives run on the cards (nccl)
+    from tpu_orc_torch.dist import multihost, sharded
+    assert default(sharded.make_mesh, "devices") is None
+    assert default(multihost.init_multihost, "backend") == "nccl"
+    one = scoring.DeviceScorer(mesh=sharded.make_mesh(devices=["cpu"]))
+    assert (one.backend, one.device) == ("kernel", "cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sharded.make_mesh()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_stages.PipelineConfig("x", use_mesh=True).mesh()
 
 
 def test_cli_refuses_absent_cuda(tmp_path, monkeypatch):
@@ -170,6 +187,19 @@ for backend in ("native", "device"):
     cons[backend] = {b: open(os.path.join(sdir, b, "consensusfile.fasta")
                              ).read() for b in sorted(os.listdir(sdir))
                      if os.path.isdir(os.path.join(sdir, b))}
+# the multi-device path on a mesh of the CPU listed twice
+from tpu_orc_torch.dist.sharded import make_mesh
+consensus.PILEUP_BACKEND = "native"
+PipelineConfig.mesh = lambda self: make_mesh(devices=["cpu", "cpu"])
+out = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()):
+    mrep = run_all(fq, out, "x", "COI",
+                   PipelineConfig(d, device="cpu", use_mesh=True,
+                                  bin_workers=1))
+sdir = os.path.join(out, "sorted")
+mesh_same = cons["native"] == {
+    b: open(os.path.join(sdir, b, "consensusfile.fasta")).read()
+    for b in sorted(os.listdir(sdir)) if os.path.isdir(os.path.join(sdir, b))}
 # the rRNA path with the Kogge-Stone locate
 from tpu_orc_torch.align import locate
 locate.LOCATE_IMPL = "ks"
@@ -184,6 +214,7 @@ print(json.dumps({"bins": rep["demux"]["bins"],
                   "groups": sum(b["species_groups"]
                                 for b in rep["barcodes"].values()),
                   "same": cons["native"] == cons["device"],
+                  "mesh": [mrep["demux"] == rep["demux"], mesh_same],
                   "rrna": [b.get("rrna") for b in rrep["barcodes"].values()],
                   "loaded": sorted(m for m in sys.modules
                                    if m.split(".")[0] in ("jax", "tpu_orc")
@@ -200,6 +231,7 @@ def test_port_runs_without_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
     assert res["bins"] == 4 and res["groups"] >= 3 and res["same"]
+    assert res["mesh"] == [True, True]
     assert {"18S": 1, "28S": 1} in res["rrna"]
 
 

@@ -21,9 +21,11 @@ the CPU tests hold against ``tpu_orc``.
     rrna/      stage 05a: the profile-HMM Viterbi (kernel wrapper and
                plain version), HMMER3 and .cm parsing, 18S/28S finders
     pipeline/  stage graph of the COI and rRNA paths (run_all), qc,
-               summary
-    analysis/  the stage-00 figures
-    utils/     run metrics
+               summary, stages 06-09
+    dist/      the multi-device path: meshes of cards, the sharded demux
+               and pairwise steps, multi-host on torch.distributed
+    analysis/  figures, LCA, phylogeny, anchors, reports
+    utils/     run metrics, the torch.profiler trace, prewarm
     synthetic  seeded synthetic banks and COI and rRNA plate reads (tests,
                smoke)
 """

@@ -117,22 +117,33 @@ def check(err: int, what: str) -> None:
 
 class LaunchCounter:
     """Thread-safe launch counts of one kernel, keyed by entry point or
-    mode. A wrapper adds one where it launches its kernel and nowhere
-    else; ``run_all``'s bin workers launch from several threads."""
+    mode, in total and per device. A wrapper adds one where it launches
+    its kernel and nowhere else; ``run_all``'s bin workers launch from
+    several threads, the multi-device path onto several cards."""
 
     def __init__(self, keys: Sequence[str]):
         self._lock = threading.Lock()
         self._n = {k: 0 for k in keys}
+        self._per_dev: Dict[str, Dict[str, int]] = {}
 
-    def add(self, key: str) -> None:
+    def add(self, key: str, device) -> None:
+        """One launch of ``key`` onto ``device`` (a torch.device)."""
         with self._lock:
             self._n[key] += 1
+            per = self._per_dev.setdefault(str(device), {})
+            per[key] = per.get(key, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             for k in self._n:
                 self._n[k] = 0
+            self._per_dev.clear()
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self._n)
+
+    def by_device(self) -> Dict[str, Dict[str, int]]:
+        """{device: {key: launches}} since the last reset."""
+        with self._lock:
+            return {d: dict(n) for d, n in self._per_dev.items()}

@@ -374,7 +374,7 @@ def batched_locate_cuda(ref_masks, ref_lens, k_table, n_prefix,
                      scratch.data_ptr() if scratch is not None else None,
                      out.data_ptr(), stream)
             _build.check(err, "batched locate kernel")
-            LAUNCHES.add(MODE_NAMES.get(flags, "other"))
+            LAUNCHES.add(MODE_NAMES.get(flags, "other"), dev)
     return out
 
 

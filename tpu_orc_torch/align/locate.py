@@ -28,8 +28,10 @@ read (:func:`locate_plain_ks`). Both take reads of fewer than
 
 Supported modes are FRONT, BACK and INFIX (the demux, primer-clean and
 reorient paths). Other flag sets belong to the XLA ``batched_locate``,
-which is not ported yet; they raise ``NotImplementedError``. Adapters may
-be up to ``MAX_ADAPTER`` bp (the Pallas tables stop at 62 bp).
+whose port is ``align/batched.py`` (the ``orc_locate_flags`` kernel of
+``csrc/batched.cu``); here they raise ``NotImplementedError``, and
+``demux/demux.py`` routes them there. Adapters may be up to
+``MAX_ADAPTER`` bp (the Pallas tables stop at 62 bp).
 """
 from __future__ import annotations
 
@@ -188,8 +190,8 @@ def _mode_of(flags: int) -> str:
     if int(flags) == int(INFIX):
         return "infix"
     raise NotImplementedError(
-        "locate supports FRONT/BACK/INFIX only; other flag sets are the "
-        "XLA batched_locate's, not ported yet")
+        "locate supports FRONT/BACK/INFIX only; other flag sets go to "
+        "align/batched.py (the XLA batched_locate's port)")
 
 
 # ---------------------------------------------------------------------------
@@ -494,7 +496,7 @@ def _launch(impl: str, tables, reads_T: torch.Tensor, lens: torch.Tensor,
             mrow.data_ptr(), ref.shape[1], B, A, MODES[mode], *extra,
             out.data_ptr(), stream)
     _build.check(err, f"locate {impl} kernel ({mode})")
-    LAUNCHES.add(mode if impl == "wf" else f"ks_{mode}")
+    LAUNCHES.add(mode if impl == "wf" else f"ks_{mode}", reads_T.device)
     return out
 
 

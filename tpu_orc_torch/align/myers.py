@@ -261,7 +261,7 @@ def myers_cuda(peq, m_lens, texts_T, n_lens, mode: str = "NW",
             tile_j.data_ptr() if pairs else None, G, TI, TJ,
             DESIGNS.index(design), dist.data_ptr(), pos.data_ptr(), stream)
     _build.check(err, f"myers kernel ({entry}, {design} design)")
-    LAUNCHES.add(f"{entry}_{design}")
+    LAUNCHES.add(f"{entry}_{design}", peq.device)
     return dist, pos
 
 
@@ -340,26 +340,39 @@ def _upload(patterns_codes, m_lens, texts_codes, n_lens, P: int, T: int,
     return put(peq.view(np.int32)), put(m), put(tt), put(nl)
 
 
+def _fetch(d, p, fetch_pos: bool, lazy: bool):
+    """(dist, pos or None) as numpy, or as the device tensors when
+    ``lazy`` (no copy to the host, no wait for the launch)."""
+    if lazy:
+        return d, (p if fetch_pos else None)
+    return d.cpu().numpy(), (p.cpu().numpy() if fetch_pos else None)
+
+
 def distances(patterns_codes: np.ndarray, m_lens: np.ndarray,
               texts_codes: np.ndarray, n_lens: np.ndarray,
-              mode: str = "NW", device="cuda", fetch_pos: bool = True):
+              mode: str = "NW", device="cuda", fetch_pos: bool = True,
+              lazy: bool = False):
     """Host wrapper mirroring ``distances_pallas``: codes in, numpy
-    ([P, T] distances, [P, T] positions or None) out."""
+    ([P, T] distances, [P, T] positions or None) out. ``lazy=True``
+    returns the [P, T] int32 tensors on ``device`` instead, so that a
+    caller can launch on several devices before it fetches any."""
     P0, T0 = patterns_codes.shape[0], texts_codes.shape[0]
     d, p = myers_tiles(*_upload(patterns_codes, m_lens, texts_codes, n_lens,
                                 P0, T0, device), mode)
-    return d.cpu().numpy(), (p.cpu().numpy() if fetch_pos else None)
+    return _fetch(d, p, fetch_pos, lazy)
 
 
 def distances_pairs(patterns_codes: np.ndarray, m_lens: np.ndarray,
                     texts_codes: np.ndarray, n_lens: np.ndarray,
                     tile_pairs: np.ndarray, mode: str = "NW",
                     TI: int | None = None, TJ: int | None = None,
-                    device="cuda", fetch_pos: bool = True):
+                    device="cuda", fetch_pos: bool = True,
+                    lazy: bool = False):
     """Host wrapper for the listed-tile entry point. ``tile_pairs`` is
     [G, 2] int32 of (pattern-tile, text-tile) indices at the (TI, TJ)
     granularity of :func:`tile_shape`. Returns numpy (dist, pos) padded
-    to [P, T]; unlisted blocks hold unspecified values."""
+    to [P, T], or with ``lazy`` the tensors on ``device`` (as
+    :func:`distances`); unlisted blocks hold unspecified values."""
     W = max(1, -(-int(patterns_codes.shape[1]) // WORD))
     TI, TJ = tile_shape(W, TI, TJ)
     P = -(-patterns_codes.shape[0] // TI) * TI
@@ -369,7 +382,7 @@ def distances_pairs(patterns_codes: np.ndarray, m_lens: np.ndarray,
     pairs = pairs.to(up[0].device)
     d, p = myers_tiles(*up, mode, pairs[:, 0].contiguous(),
                        pairs[:, 1].contiguous(), TI, TJ)
-    return d.cpu().numpy(), (p.cpu().numpy() if fetch_pos else None)
+    return _fetch(d, p, fetch_pos, lazy)
 
 
 def distances_with_pos(patterns_codes: np.ndarray, m_lens: np.ndarray,

@@ -179,7 +179,7 @@ def path_bits_cuda(peqs, dwords, tile_gid, texts_T, n_lens):
             texts_T.data_ptr(), n_lens.data_ptr(), T, N, W,
             planes.data_ptr(), stream)
     _build.check(err, "pileup kernel")
-    LAUNCHES.add("single" if G == 1 else "multi")
+    LAUNCHES.add("single" if G == 1 else "multi", peqs.device)
     return planes
 
 

@@ -22,21 +22,24 @@
     python -m tpu_orc_torch.cli prep-anchors <aligned.fa> <samples.fa> -g GENE [-o OUT]
     python -m tpu_orc_torch.cli figures     -o OUT [--blast-csv F] [--lca-csv F]
                                             [--flow-tsv F]
+    python -m tpu_orc_torch.cli prewarm     --adapters-dir DIR [--batch N]
     python -m tpu_orc_torch.cli run-all     <fastq> -o OUT -n DATASET -a {COI,RNA}
                                             --adapters-dir DIR [--trace DIR]
                                             [--rrna-hmm F | --rrna-cm F]
                                             [--exemplars-18s F] [--exemplars-28s F]
-                                            [--bin-workers N]
+                                            [--mesh] [--bin-workers N]
 
-Port of ``tpu_orc/cli.py`` without ``prewarm`` and ``run-all --mesh``
-(the multi-device path is not ported). The subcommands that run kernels
-take ``--device`` (default ``cuda``), the torch device of the kernels: a
+Port of ``tpu_orc/cli.py``. The subcommands that run kernels take
+``--device`` (default ``cuda``), the torch device of the kernels: a
 CUDA device that is not there is an error, never a CPU fallback, and
 ``--device cpu`` runs the kernels' plain versions. Those that read the
 adapter banks take ``--adapters-dir``, the folder of the six
 adapter/primer files. ``TPU_ORC_LOCATE_IMPL=ks`` runs every locate of
 ``align/locate.py`` through the Kogge-Stone kernel. ``run-all --trace
-DIR`` writes a ``torch.profiler`` trace of the run into DIR.
+DIR`` writes a ``torch.profiler`` trace of the run into DIR;
+``run-all --mesh`` stripes the demux and the clustering over every
+visible card (``dist/sharded.py``). ``prewarm`` builds the kernels and
+runs each once per card (``utils/prewarm.py``).
 """
 from __future__ import annotations
 
@@ -170,6 +173,9 @@ def main(argv=None):
     sp.add_argument("--cm", help="Infernal .cm (Rfam SSU/LSU models; "
                                  "pybarrnap variant)")
 
+    sp = add("prewarm", device=True, adapters=True)
+    sp.add_argument("--batch", type=int, default=2048)
+
     sp = add("extract-max")
     sp.add_argument("mode", choices=["ribo", "coi"])
     sp.add_argument("indir")
@@ -224,6 +230,9 @@ def main(argv=None):
                          "filter (rrna/cm.py)")
     sp.add_argument("--exemplars-18s", default=None)
     sp.add_argument("--exemplars-28s", default=None)
+    sp.add_argument("--mesh", action="store_true",
+                    help="stripe demux reads and clustering patterns over "
+                         "every visible card (dist/sharded.py)")
     sp.add_argument("--bin-workers", type=int, default=4,
                     help="concurrent barcode bins in stages 03-05 "
                          "(overlaps host consensus and device scoring "
@@ -335,6 +344,11 @@ def main(argv=None):
         hits = extract_rrna(list(read_records(args.input)), args.outdir,
                             args.barcode, device=device, **kw)
         print(json.dumps({g: len(h) for g, h in hits.items()}))
+    elif args.cmd == "prewarm":
+        from .utils.prewarm import prewarm
+        timings = prewarm(adapters_dir=adapters, demux_batch=args.batch,
+                          devices=None if device == "cuda" else [device])
+        print(json.dumps(timings))
     elif args.cmd == "extract-max":
         from .pipeline.extractors import extract_coi_max, extract_ribo_max
         fn = extract_ribo_max if args.mode == "ribo" else extract_coi_max
@@ -395,6 +409,7 @@ def main(argv=None):
                              rrna_cm=args.rrna_cm,
                              rrna_exemplars_18s=args.exemplars_18s,
                              rrna_exemplars_28s=args.exemplars_28s,
+                             use_mesh=args.mesh,
                              bin_workers=args.bin_workers)
         rep = run_all(args.input, args.outdir, args.dataset, args.amplicon,
                       cfg=cfg, trace_dir=args.trace)

@@ -3,9 +3,10 @@
 Copy of ``tpu_orc/cluster/scoring.py``; the device seam: ``DeviceScorer``
 has the backends ``"kernel"`` (``align/myers.py`` on the scorer's torch
 device: the CUDA kernels on a CUDA device, their plain version on the
-CPU) and ``"native"`` (the C++ oracle); ``_tile_distances`` and
-``_gated_block`` call the dense and listed-tile Myers entry points. The
-mesh backend is not ported.
+CPU), ``"native"`` (the C++ oracle) and ``"mesh"`` (a mesh of more than
+one device, :71-98: pattern stripes over its devices through
+``dist/sharded.py::device_parallel_pairwise``); ``_tile_distances`` and
+``_gated_block`` call the dense and listed-tile Myers entry points.
 
 Replaces the reference's multiprocessing+edlib pairwise engine
 (amplicon_sorter.py:648-808 ``process_list``/``similarity``) with tiled
@@ -70,23 +71,32 @@ class DeviceScorer:
     """Tiled Myers scoring; one instance caches packing decisions.
 
     backend='kernel' runs the Myers entry points of align/myers.py on
-    ``device`` (CUDA: the kernels; CPU: their plain version);
-    backend='native' the C++ oracle (bit-identical, parity-tested).
+    ``device`` (CUDA: the kernels; CPU: their plain version), or, given
+    a ``mesh`` of more than one device, on pattern stripes over the
+    mesh's devices (backend 'mesh'); backend='native' the C++ oracle
+    (bit-identical, parity-tested).
     """
 
     def __init__(self, tile: int = 256, backend: str = "kernel",
-                 device: str = "cuda"):
+                 device: str = "cuda", mesh=None):
         if backend not in ("kernel", "native"):
             raise ValueError(f"scorer backend {backend!r} not in "
                              f"('kernel', 'native')")
         self.tile = tile
         self.pairs_scored = 0  # telemetry for bench
-        self.backend = backend
+        self.mesh = mesh if (mesh is not None
+                             and mesh.devices.size > 1) else None
+        self.backend = ("mesh" if self.mesh is not None
+                        and backend == "kernel" else backend)
         self.device = device
 
     def _tile_distances(self, pat, plens, txt, tlens):
         """All-vs-all tile dispatch: the dense Myers entry point on the
-        scorer's device."""
+        scorer's device, or striped over the mesh."""
+        if self.backend == "mesh":
+            from ..dist.sharded import device_parallel_pairwise
+            return device_parallel_pairwise(
+                list(self.mesh.devices.flat), pat, plens, txt, tlens)
         d, _ = myers.distances(pat, plens, txt, tlens, "NW",
                                device=self.device, fetch_pos=False)
         return d
@@ -154,7 +164,15 @@ class DeviceScorer:
         """[NB, >=nt] distance block for the True entries of ``gate``
         ([np_, nt]); ungated entries are unspecified. Only the surviving
         (TI, TJ) tiles are listed, in one launch of the pairs entry
-        point."""
+        point; on a mesh, one launch per pattern stripe and device, the
+        host gathering for the union-find."""
+        if self.backend == "mesh":
+            from ..dist.sharded import device_parallel_pairwise
+            gfull = np.zeros((NB, texts.shape[0]), bool)
+            gfull[:np_, :nt] = gate
+            return device_parallel_pairwise(
+                list(self.mesh.devices.flat), packed, lens, texts,
+                tlens, "NW", gate=gfull)
         W = max(1, -(-packed.shape[1] // myers.WORD))
         TI, TJ = myers.tile_shape(W)
         P = -(-NB // TI) * TI

@@ -7,8 +7,11 @@ on CUDA" in place of "the backend is not the CPU": FRONT/BACK/INFIX on a
 bank whose longest adapter is under 63 bp go through ``align/locate.py``
 (the Pallas kernels' counterparts), every other flag set and longer bank
 through ``align/batched.py`` (the XLA ``batched_locate``'s). The fused
-dual-round program runs when both banks take the first route on CUDA. The
-mesh path (``_decisions_sharded``) is not ported.
+dual-round program runs when both banks take the first route on CUDA.
+With a mesh of more than one device (``mesh=``), ``_decisions_sharded``
+(:492) stripes each chunk over the devices: the fused program per device
+(``fused.FusedDemux.decide_multi``) where it runs, else
+``dist/sharded.py::sharded_dual_demux_step``.
 
 Replaces the reference pipeline's scripts/02_cutadapt_loop.sh:
 
@@ -114,16 +117,18 @@ def _use_pallas(bank: AdapterBank, flags) -> bool:
             and torch.device(bank.device).type == "cuda")
 
 
-def _bank_tensors(bank: AdapterBank) -> tuple:
-    """(masks, lens, k_table, n_prefix) of the bank as tensors on its
-    device, cached on the bank (a run locates thousands of batches
-    against one bank; banks are immutable once located against)."""
-    got = getattr(bank, "_bl_tensors", None)
+def _bank_tensors(bank: AdapterBank, device=None) -> tuple:
+    """(masks, lens, k_table, n_prefix) of the bank as tensors on
+    ``device`` (default: its own), cached on the bank per device (a run
+    locates thousands of batches against one bank, and a mesh replicates
+    it per device; banks are immutable once located against)."""
+    device = torch.device(bank.device if device is None else device)
+    cache = bank.__dict__.setdefault("_bl_tensors", {})
+    got = cache.get(device)
     if got is None:
-        got = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(bank.device)
-                    for x in (bank.masks, bank.lens, bank.k_table,
-                              bank.n_prefix))
-        bank._bl_tensors = got
+        got = cache[device] = tuple(
+            torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (bank.masks, bank.lens, bank.k_table, bank.n_prefix))
     return got
 
 
@@ -517,6 +522,69 @@ def materialize_batch(records: Sequence[Record], sp5_names, sp27_names,
     return out
 
 
+def _decisions_sharded(records: Sequence[Record], sp5: AdapterBank,
+                       sp27rc: AdapterBank, mesh) -> List[tuple]:
+    """Mesh data-parallel decisions: reads stripe over the mesh, banks
+    replicate per device (SURVEY.md §2.4 mapping). On CUDA devices a
+    chunk is 4096 reads per device and takes the fused program per
+    device where :func:`_use_fused` holds; every other bank pair (banks
+    of 63 bp or more, or a CPU mesh, in 4096-read chunks) takes
+    ``sharded_dual_demux_step``. Decision semantics are identical to the
+    single-device paths (same locate cores and selection rules)."""
+    from ..dist.sharded import sharded_dual_demux_step
+    out: List[tuple] = []
+    ndata = mesh.shape["data"]  # reads stripe over 'data' only
+    on_cuda = all(d.type == "cuda" for d in mesh.devices.flat)
+    CH = 4096 * mesh.devices.size if on_cuda else 4096
+    for s in range(0, len(records), CH):
+        chunk = records[s:s + CH]
+        L = _bucket_pad(max((len(r.seq) for r in chunk), default=1))
+        amat, lens = encode.ascii_matrix([r.seq for r in chunk],
+                                         max_len=L)
+        if on_cuda and _use_fused(sp5, sp27rc):
+            from .fused import FusedDemux
+            # key on bank CONTENT, not id(): id() reuse after GC could
+            # alias a new bank to a stale FusedDemux
+            key = (tuple(sp5.names), sp5.masks.tobytes(),
+                   float(sp5.max_error_rate), tuple(sp27rc.names),
+                   sp27rc.masks.tobytes(),
+                   float(sp27rc.max_error_rate), str(sp5.device))
+            fd = _decisions_sharded.fd_cache.get(key)
+            if fd is None:
+                fd = FusedDemux(sp5, sp27rc)
+                _decisions_sharded.fd_cache[key] = fd
+            d = fd.decide_multi(encode.read_masks_matrix(amat, lens),
+                                lens, list(mesh.devices.flat))
+            i1, rc1, qe1 = d.idx1, d.rc1, d.qe1
+            i2, rc2, qs2, e1, e2 = d.idx2, d.rc2, d.qs2, d.err1, d.err2
+        else:
+            masks = encode.read_masks_matrix(amat, lens)
+            B0 = masks.shape[0]
+            B = -(-B0 // ndata) * ndata
+            if B != B0:
+                masks = np.concatenate(
+                    [masks, np.zeros((B - B0, L), masks.dtype)])
+                lens2 = np.concatenate(
+                    [lens, np.ones(B - B0, lens.dtype)])
+            else:
+                lens2 = lens
+            i1, rc1, qe1, i2, rc2, qs2, e1, e2, _, _ = (
+                np.asarray(v)[:B0] for v in sharded_dual_demux_step(
+                    mesh, sp5, sp27rc, masks, lens2))
+        mat = materialize_batch(chunk, sp5.names, sp27rc.names,
+                                i1, rc1, qe1, i2, rc2, qs2,
+                                amat=amat, lens=lens)
+        for i, dec in enumerate(mat):
+            out.append(dec + (bool(rc1[i]) and int(i1[i]) >= 0,
+                              int(e1[i]),
+                              bool(rc2[i]) and int(i2[i]) >= 0,
+                              int(e2[i])))
+    return out
+
+
+_decisions_sharded.fd_cache = {}
+
+
 class _BinWriters:
     """Lazily opened, append-streaming per-bin output writers: one gz
     text handle per bin held open across chunks, so a streaming demux
@@ -551,19 +619,23 @@ def dual_round_demux_stream(record_iter, sp5: AdapterBank,
                             sp27rc: AdapterBank, dataset: str,
                             outdir: str, write: bool = True,
                             fmt: str = "fastq", batch_size: int = 256,
-                            chunk_size: int = 16384) -> Dict:
+                            chunk_size: int = 16384, mesh=None) -> Dict:
     """Streaming core of :func:`dual_round_demux`: consumes an ITERABLE
     of records in ``chunk_size`` blocks with O(chunk + counters) host
     memory — a flowcell-scale FASTQ (millions of reads,
     the reference pipeline's README.md:38-40) never materializes as Python
     records. Outputs (bins, JSON reports, counters) are identical to
     the list API; per-bin files stream through held-open gz handles.
+    A ``mesh`` of more than one device stripes every chunk over its
+    devices (:func:`_decisions_sharded`); one of a single device takes
+    the single-device path.
     """
     from .report import RoundReportAccum
     fused = None
-    if _use_fused(sp5, sp27rc):
-        from .fused import FusedDemux
-        fused = FusedDemux(sp5, sp27rc)
+    if mesh is None or mesh.devices.size <= 1:
+        if _use_fused(sp5, sp27rc):
+            from .fused import FusedDemux
+            fused = FusedDemux(sp5, sp27rc)
 
     r1_counts: Dict[str, int] = defaultdict(int)
     r2_counts: Dict[str, Dict[str, int]] = defaultdict(
@@ -588,7 +660,9 @@ def dual_round_demux_stream(record_iter, sp5: AdapterBank,
             if not records:
                 break
             total += len(records)
-            if fused is not None:
+            if mesh is not None and mesh.devices.size > 1:
+                dec = _decisions_sharded(records, sp5, sp27rc, mesh)
+            elif fused is not None:
                 # 2048-read chunks pipeline best: assign dispatches
                 # every chunk before fetching any, so host
                 # pack/materialize for chunk k overlaps device compute
@@ -649,7 +723,7 @@ def dual_round_demux_stream(record_iter, sp5: AdapterBank,
 def dual_round_demux(records: Sequence[Record], sp5: AdapterBank,
                      sp27rc: AdapterBank, dataset: str, outdir: str,
                      write: bool = True, fmt: str = "fastq",
-                     batch_size: int = 256) -> Dict:
+                     batch_size: int = 256, mesh=None) -> Dict:
     """Full two-round demux with unknown/invalid-combo removal.
 
     Returns a report dict (cutadapt-JSON-like counters) and, when ``write``,
@@ -661,9 +735,10 @@ def dual_round_demux(records: Sequence[Record], sp5: AdapterBank,
 
     On CUDA both rounds run fused in one device program
     (demux/fused.py): a single upload, on-device rc + trim, eight small
-    vectors back. A CPU bank pair takes the two-round path.
+    vectors back. A CPU bank pair takes the two-round path. A ``mesh``
+    of more than one device stripes the reads over its devices.
     List wrapper over :func:`dual_round_demux_stream` (same outputs).
     """
     return dual_round_demux_stream(records, sp5, sp27rc, dataset,
                                    outdir, write=write, fmt=fmt,
-                                   batch_size=batch_size)
+                                   batch_size=batch_size, mesh=mesh)

@@ -3,8 +3,11 @@
 Copy of ``tpu_orc/demux/fused.py``; the device seam: ``_fused_body``
 (:128) is torch ops on the banks' device around two launches of
 ``align/locate.py::locate_tiles`` (the CUDA kernel on a CUDA device, its
-plain version on the CPU). Not ported: ``decide_multi`` (:224, multi-chip)
-and the opt-in 2-bit packed upload (:93-116, ``ORC_PACKED_UPLOAD``).
+plain version on the CPU). ``decide_multi`` (:224) runs it on one
+stripe of the batch per device, ``decide_packed`` (:216) and
+``assign`` under ``ORC_PACKED_UPLOAD`` (:274, :341) after the 2-bit
+packed upload's unpack (:93-116), all as in ``tpu_orc``; a batch is not
+padded to the Pallas kernel's read tile (``TB``) here.
 
 Replaces the host round-trip of the unfused path (demux.py), which for
 each batch did: upload round-1 masks -> download trim points -> slice
@@ -29,6 +32,7 @@ round 1 (:64-72) + round 2 (:91-103), both `--rc -e 0.1 --action=trim`.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -172,6 +176,44 @@ class FusedDemux:
         out = self._dispatch(masks, lens).cpu().numpy()
         return FusedDecision(*(out[k, :B0] for k in range(8)))
 
+    def decide_packed(self, codes: np.ndarray, lens: np.ndarray
+                      ) -> FusedDecision:
+        """codes [B0, L] uint8 {0..4} (L a multiple of 8), lens [B0] ->
+        FusedDecision, via the 2-bit packed wire format (0.375 B/base
+        uploaded instead of 1)."""
+        B0 = codes.shape[0]
+        out = self._dispatch_packed(codes, lens).cpu().numpy()
+        return FusedDecision(*(out[k, :B0] for k in range(8)))
+
+    def decide_multi(self, masks: np.ndarray, lens: np.ndarray,
+                     devices) -> FusedDecision:
+        """Multi-device demux decisions: batch rows striped over explicit
+        devices (``ceil(B0 / len(devices))`` rows each, in row order),
+        each stripe running the same fused program as ``decide`` on its
+        device; every stripe is launched before any is fetched, so the
+        devices compute together; the host concatenates. A device may be
+        listed more than once."""
+        from ..dist.sharded import device_of
+        devices = [device_of(d) for d in devices]
+        B0 = masks.shape[0]
+        stripe = -(-B0 // len(devices))
+        lazies = []
+        for k, dev in enumerate(devices):
+            r0, r1 = k * stripe, min((k + 1) * stripe, B0)
+            if r0 >= r1:
+                break
+            # the bank tables replicate per device (memoized by
+            # BankTables.tensors), SURVEY.md §2.4
+            lazies.append(_fused_body(
+                self.t5.tensors(dev), self.t27.tensors(dev),
+                _put(masks[r0:r1], dev, np.uint8),
+                _put(lens[r0:r1], dev, np.int32), self.t5.A, self.t27.A,
+                self._locate))
+        if not lazies:
+            return FusedDecision(*(np.zeros(0, np.int32) for _ in range(8)))
+        full = np.concatenate([o.cpu().numpy() for o in lazies], axis=1)
+        return FusedDecision(*(full[k] for k in range(8)))
+
     def assign(self, records: Sequence[Record], batch_size: int = 2048,
                max_len: int = 256):
         """Yield (rec_index, sp5_name|None, trimmed1 Record, sp27_name|None,
@@ -182,6 +224,10 @@ class FusedDemux:
         from .demux import materialize_batch
         recs = list(records)
         out = []
+        # 2-bit packed upload is opt-in, as in tpu_orc (where it saved
+        # upload bytes but no wall time); decisions are the same either
+        # way.
+        packed = bool(os.environ.get("ORC_PACKED_UPLOAD"))
         # Pipelined two-phase structure: chunks pack + DISPATCH ahead of
         # the fetches through a bounded window (CUDA launches are
         # asynchronous, the device queue runs ahead), so host
@@ -214,7 +260,12 @@ class FusedDemux:
                 [r.seq for r in chunk],
                 max_len=_pick_len(max((len(r.seq) for r in chunk),
                                       default=1), max_len))
-            lazy = self._dispatch(encode.read_masks_matrix(amat, lens), lens)
+            if packed:
+                lazy = self._dispatch_packed(
+                    encode.codes_matrix(amat, lens), lens)
+            else:
+                lazy = self._dispatch(
+                    encode.read_masks_matrix(amat, lens), lens)
             pending.append((s, chunk, lazy, len(chunk), amat, lens))
             if len(pending) >= MAX_INFLIGHT:
                 _drain_one()
@@ -225,11 +276,42 @@ class FusedDemux:
     def _dispatch(self, masks: np.ndarray, lens: np.ndarray):
         """Upload + launch the fused program; returns the [8, B] device
         tensor (no fetch)."""
-        put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(
-            self.device)
-        return _fused_body(self._a5, self._a27, put(masks.astype(np.uint8)),
-                           put(np.asarray(lens, np.int32)), self.t5.A,
+        return _fused_body(self._a5, self._a27,
+                           _put(masks, self.device, np.uint8),
+                           _put(lens, self.device, np.int32), self.t5.A,
                            self.t27.A, self._locate)
+
+    def _dispatch_packed(self, codes: np.ndarray, lens: np.ndarray):
+        """Packed-upload variant of :meth:`_dispatch`: the 2-bit wire
+        format up, the masks unpacked on the device."""
+        L = codes.shape[1]
+        p2, oth = encode.pack_codes_2bit(codes, lens)
+        masks = _unpack_to_masks(_put(p2, self.device),
+                                 _put(oth, self.device), L)
+        return _fused_body(self._a5, self._a27, masks,
+                           _put(lens, self.device, np.int32), self.t5.A,
+                           self.t27.A, self._locate)
+
+
+def _put(x, dev, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
+
+
+def _unpack_to_masks(packed2, other, L: int):
+    """Device unpack of the 2-bit wire format (io/encode.pack_codes_2bit):
+    packed2 [B, L//4] uint8 (4 bases/byte), other [B, L//8] uint8 (the
+    'non-ACGT' bitplane) -> read match masks [B, L] uint8 (1,2,4,8,16;
+    16 also past each read's length, where no locate looks)."""
+    B = packed2.shape[0]
+    p = packed2.to(torch.int32)
+    two = torch.stack([(p >> k) & 3 for k in (0, 2, 4, 6)],
+                      dim=-1).reshape(B, L)
+    o = other.to(torch.int32)
+    obits = torch.stack([(o >> k) & 1 for k in range(8)],
+                        dim=-1).reshape(B, L)
+    code = torch.where(obits != 0, 4, two)
+    return torch.bitwise_left_shift(torch.ones_like(code), code).to(
+        torch.uint8)
 
 
 def _pick_len(n: int, default_cap: int) -> int:

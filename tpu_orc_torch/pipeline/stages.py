@@ -6,10 +6,13 @@ path-bits pileup and Viterbi call ("cuda": the kernels of ``csrc/``;
 "cpu": their plain versions). ``stage_sort`` hands it to the sorter for
 the consensus pileup (the ``device`` backend of ``ORC_PILEUP_BACKEND``),
 whichever backend scores the bin; ``stage_rrna`` to stage 05a's finders.
-``run_all`` (:244) differs in one place: it raises
-``NotImplementedError`` for ``use_mesh``, the multi-device path is not
-ported. Its ``trace_dir`` opens ``utils.profiling.device_trace``, a
-``torch.profiler`` trace.
+With ``use_mesh`` (:59, :73-77), ``run_all`` builds one mesh of the
+cards (``dist/sharded.py::make_mesh``) for stages 02 and 03, as
+``tpu_orc``'s does: the demux stripes its chunks over the mesh, and
+every bin scores on the mesh (no native scorer for small bins,
+:148-150); the work that is not striped (reorient, the consensus
+pileup, primer clean, 05a) stays on ``cfg.device``. Its ``trace_dir``
+opens ``utils.profiling.device_trace``, a ``torch.profiler`` trace.
 
   00 qc         raw.fastq            -> <name>_nanoplot/
   01 reorient   raw.fastq            -> pychopped/<name>_pass.fastq (+aux)
@@ -31,6 +34,8 @@ import json
 import os
 from dataclasses import dataclass, field
 from typing import Dict, Optional
+
+import torch
 
 from ..io.fastq import read_records
 from .qc import write_stats
@@ -58,13 +63,26 @@ class PipelineConfig:
     rrna_exemplars_28s: Optional[str] = None
     rrna_hmm: Optional[str] = None            # HMMER3 file (barrnap euk.hmm)
     rrna_cm: Optional[str] = None             # Infernal .cm (Rfam; rrna/cm.py)
-    # multi-device sharding is not ported: run_all raises when set
+    # multi-device: stripe demux reads and clustering patterns over a
+    # ('data','pair') mesh of the cards (dist/sharded.py). False = one
+    # device; True = every visible card (SLURM-array fan-out replaced by
+    # mesh data parallelism, SURVEY.md §2.4).
     use_mesh: bool = False
     # Concurrent barcode bins (the reference's --array=1-96 fan-out,
     # 03_amplicon_sorter.sh:7). Bins are independent; overlapping them
     # hides one bin's host consensus work behind another bin's device
     # scoring. Outputs are byte-identical to sequential.
     bin_workers: int = 4
+
+    def mesh(self):
+        """The mesh of ``use_mesh``: every visible card for a CUDA
+        ``device``, the one device otherwise; None without ``use_mesh``."""
+        if not self.use_mesh:
+            return None
+        from ..dist.sharded import make_mesh
+        if torch.device(self.device).type == "cuda":
+            return make_mesh()
+        return make_mesh(devices=[self.device])
 
     @property
     def sp5_fasta(self):
@@ -107,14 +125,15 @@ def stage_reorient(in_fastq: str, outdir: str, name: str,
 
 
 def stage_demux(in_fastq: str, outdir: str, dataset: str,
-                cfg: PipelineConfig):
+                cfg: PipelineConfig, mesh=None):
     from ..demux.demux import dual_round_demux_stream
     sp5 = AdapterBank.from_fasta(cfg.sp5_fasta, cfg.e_rate, cfg.device)
     sp27 = AdapterBank.from_fasta(cfg.sp27rc_fasta, cfg.e_rate, cfg.device)
     # stream straight off the file: host memory is O(chunk), not O(file)
     return dual_round_demux_stream(
         read_records(in_fastq), sp5, sp27, dataset,
-        os.path.join(outdir, "demuxed"))
+        os.path.join(outdir, "demuxed"),
+        mesh=mesh if mesh is not None else cfg.mesh())
 
 
 # Bins at or below this many total nucleotides sort with the native C++
@@ -127,13 +146,15 @@ NATIVE_SMALL_BIN_NT = int(os.environ.get("TPU_ORC_NATIVE_SMALL_BIN_NT",
 
 
 def stage_sort(bin_fastq: str, outdir: str, barcode: str, prefix: str,
-               cfg: PipelineConfig, save_fastq: bool = False,
+               cfg: PipelineConfig, mesh=None, save_fastq: bool = False,
                compressed: bool = False, alignment: bool = False):
     from ..cluster.scoring import DeviceScorer
     records = list(read_records(bin_fastq))
+    mesh = mesh if mesh is not None else cfg.mesh()
     scorer = DeviceScorer(tile=cfg.sorter.tile, backend="kernel",
-                          device=cfg.device)
-    if sum(len(r.seq) for r in records) <= NATIVE_SMALL_BIN_NT:
+                          device=cfg.device, mesh=mesh)
+    if mesh is None and sum(len(r.seq) for r in records) \
+            <= NATIVE_SMALL_BIN_NT:
         try:
             from .. import native
             native.lib()  # no compiler / read-only dir -> device path
@@ -236,11 +257,10 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
     torch.profiler trace of the whole run)."""
     from ..utils.profiling import Metrics, device_trace
 
-    if cfg.use_mesh:
-        raise NotImplementedError("the multi-device path is not ported")
     os.makedirs(outdir, exist_ok=True)
     report: Dict = {"dataset": dataset, "amplicon": amplicon}
     met = Metrics(run=dataset)
+    mesh = cfg.mesh()  # one mesh for every striped stage (None = 1 device)
 
     with device_trace(trace_dir):
         with met.stage("00_qc") as st:
@@ -256,7 +276,8 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
                                  f"{dataset}_pass.fastq")
 
         with met.stage("02_demux") as st:
-            demux_rep = stage_demux(pass_path, outdir, dataset, cfg)
+            demux_rep = stage_demux(pass_path, outdir, dataset, cfg,
+                                    mesh=mesh)
             st.count(n_reads=demux_rep["total_reads"])
         report["demux"] = {
             "bins": len(demux_rep["final_bins"]),
@@ -274,7 +295,7 @@ def run_all(in_fastq: str, outdir: str, dataset: str, amplicon: str,
                                     f"{comb}_{dataset}.fastq.gz")
             with met.stage(f"03_sort/{comb}") as st:
                 result, consensus_path = stage_sort(bin_path, outdir, comb,
-                                                    prefix, cfg)
+                                                    prefix, cfg, mesh=mesh)
                 st.count(n_reads=result.n_reads)
             rep_bc = {"reads": result.n_reads, "skipped": result.skipped,
                       "species_groups": sum(len(s)

@@ -348,7 +348,7 @@ def viterbi_cuda(match_s, trans, S, seqs, lens, design: str | None = None):
                      DESIGNS.index(design), best.data_ptr(), bpos.data_ptr(),
                      bnode.data_ptr(), stream)
     _build.check(err, f"viterbi kernel ({design} design)")
-    LAUNCHES.add(f"scan_{design}")
+    LAUNCHES.add(f"scan_{design}", dev)
     return best, bpos, bnode
 
 
