@@ -4,10 +4,12 @@ path (run_all) on a synthetic 96-bin plate, the rRNA path with the
 Kogge-Stone locate on a synthetic 96-bin rRNA plate, the batched locate
 through the demux on lengthened banks, a traced run_all, stages 06-09
 and prewarm through the CLI, and the multi-device path over every
-visible card, and check what comes out.
+visible card, check what comes out, and hold every locate and Myers
+kernel against both oracles of the port (C++ and Python).
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 6,14   # setup and these phases only
+    python3 chip_smoke.py --phases 15     # the oracles' phase alone
 
 Needs one CUDA device and the CUDA toolkit (nvcc); imports no JAX. With
 more cards, phase 14 stripes over all of them. ``--phases`` makes a
@@ -114,6 +116,19 @@ Phases:
      localhost (gloo on one card, nccl with a card a rank on more): the
      all-reduced histogram, host_file_shard's partition and the merged
      consensusfile.fasta against one process.
+15. every locate and Myers kernel against both oracles of the port, the
+     C++ one (native) and the definitional Python one (align/oracle.py),
+     at the card's shapes: locate #1 and #2 through the demux's batch path
+     (FRONT, BACK at min_overlap 3 and 0, INFIX on a plain bank at e 0.2;
+     phase 2's and phase 8's reads), the batched locate on phase 11's
+     banks (FRONT, BACK) and ROADMAP 3.6's 300 bp case, Myers dense and
+     pairs through distances, distances_pairs and myers_tile in NW, SHW
+     and HW at W 17 and W 112, in both designs, and similarity_matrix;
+     every read (a sample of pairs for Myers) against the C++ oracle, a
+     sample against the Python oracle (run in spawned processes meanwhile);
+     no disagreement but ROADMAP 3.4's (the wavefront locate in BACK at
+     min_overlap 0 on the empty reads), asserted as that exact set; the
+     cells compared, the disagreements and the time of each case printed.
 Phase 1 prints each kernel source's ptxas report (registers, stack
 frame). Prints a JSON line of per-kernel numbers, the card line, and last
 the result line. Exits non-zero, printing no result, when any phase fails or
@@ -167,6 +182,16 @@ THREAD_DESIGN_MS = {"batched_locate_front": 4.128,
                     "batched_locate_front_long": 31.371,
                     "batched_locate_back_long": 36.225}
 
+#: phase 15's samples for the Python oracle, which walks each DP cell in
+#: the interpreter (~1 us a cell): reads per locate case (COI, rRNA; the
+#: rRNA sample holds its 22 empty reads, and each sample every read
+#: shorter than the longest adapter), reads per batched case (L 512,
+#: L 3,584), and pairs per Myers case and entry; jobs of PY_CHUNK reads
+#: or pairs. Cut so that the phase keeps to 90 s on the GPU host's 8
+#: cores beside the C++ oracle (PERF.md, §6)
+PY_READS = (32, 26, 8, 2)
+PY_PAIRS = 16
+PY_CHUNK = 4
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1845,6 +1870,408 @@ class Smoke:
               f"({ref.count('>')} groups) byte-identical to one process")
 
 
+    # -- phase 15 --------------------------------------------------------
+    def oracles(self):
+        """Every locate and Myers kernel against both oracles of the port,
+        the C++ one (``native``) and the definitional Python one
+        (``align/oracle.py``), at the card's shapes.
+
+        Locate #1 (wavefront) and #2 (Kogge-Stone) through the demux's
+        public batch path (``locate_batch_lazy``, on ``cuda``), the
+        LocateResult fields valid, matches, errors, refstart, refstop,
+        querystart and querystop of every (read, adapter) cell (the five
+        location fields and the errors only where both sides are valid:
+        the rest is unspecified), at phase 2's 16,384 reads x L 512 and
+        phase 8's 2,048 rRNA reads x L 3,584 (the path pads them to 4,096
+        columns): FRONT on the SP5 bank and BACK on the SP27-rc bank at
+        min_overlap 3, BACK also at 0, and INFIX at 3 on the pychopper
+        primers and their reverse complements. INFIX's bank is a plain
+        AdapterBank at e 0.2: reorient's bank carries a custom k, which
+        neither oracle takes. Every read against the C++ oracle; a seeded
+        sample, with every empty read and every read shorter than the
+        longest adapter, against the Python oracle. The only
+        disagreements allowed are ROADMAP 3.4's: BACK at min_overlap 0 on
+        exactly the empty reads, under the kernel whose Pallas original
+        never evaluates cell (0, 0) (the wavefront, #1).
+
+        The batched locate on phase 11's banks and reads (the SP5
+        59-mers, 4 x 70 bp and the 64-300 bp bank at L 512; the 64-300
+        bp bank at L 3,584), FRONT and BACK at min_overlap 3, through
+        ``batched_locate`` on ``cuda``: every read against the C++ oracle,
+        a sample against the Python oracle; and ROADMAP 3.6's case
+        (BACK, a 300 bp adapter, refstop 260 and 290) equal to both.
+
+        Myers #3 (pairs) and #4 (dense) through ``distances``,
+        ``distances_pairs`` and ``myers_tile`` on ``cuda``, in NW, SHW and
+        HW: the 1,000-read COI bin at W 17 in the design the wrapper
+        picks (thread) and in the warp design, a seeded sample of pairs
+        (from the gated tiles for the pairs entry) against the C++
+        oracle and a smaller one against the Python oracle; the rRNA
+        reads at W 112 (the ladder's dense 8 x 32, and the enlarged bin's
+        listed tiles) in both designs against the C++ oracle only (the
+        Python oracle's inner loop is too slow at 3.5 kb). The oracles
+        give no end position, so positions stay held against the plain
+        version (phase 3); here ``myers_tile``'s equal ``distances``'.
+        ``similarity_matrix`` of the card's NW distances equals the
+        Python oracle's ``similarity`` on the sampled COI pairs.
+
+        The pileup (#5, #6) keeps phase 5's check against the native
+        pileup; the Viterbi has no oracle in tpu_orc. The Python oracle
+        runs in a pool of spawned processes while the card and the C++
+        oracle work; the phase prints per case the cells compared, the
+        disagreements and its time, then the C++ oracle's share and the
+        Python oracle's."""
+        import multiprocessing
+        t0 = time.perf_counter()
+        self.cpp_s = 0.0
+        self.py_jobs = []       # (what is compared, pool jobs, compare)
+        ctx = multiprocessing.get_context("spawn")
+        nproc = os.cpu_count() or 1
+        # the workers run niced, so that the C++ oracle (every core, in
+        # this process) and the card's cases go first
+        with ctx.Pool(nproc, initializer=os.nice, initargs=(10,)) as pool:
+            self.pool = pool
+            self.oracle_locate()
+            self.oracle_batched()
+            self.oracle_myers()
+            t1 = time.perf_counter()
+            busy = 0.0
+            for compared, jobs, compare in self.py_jobs:
+                res, secs = [], 0.0
+                for job in jobs:
+                    r, t = job.get(timeout=900)
+                    res += r
+                    secs += t
+                busy += secs
+                for name, bad, unexpected in compare(res):
+                    print(f"   {name}: {compared} against the Python "
+                          f"oracle, {bad} disagreements ({secs:.2f} CPU s "
+                          f"in the workers)", flush=True)
+                    assert unexpected == 0, \
+                        f"{name}: {unexpected} disagreements not expected"
+            waited = time.perf_counter() - t1
+        print(f"   C++ oracle's share {self.cpp_s:.1f} s; Python oracle "
+              f"{busy:.1f} CPU s over {nproc} processes, {waited:.1f} s "
+              f"waited for after the card's cases; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def native_locate(self, refs, masks, lens, e, flags, mo):
+        """The C++ oracle on every read, on every core: (out [B, A, 6],
+        valid [B, A], its seconds)."""
+        from tpu_orc_torch import native
+        t0 = time.perf_counter()
+        out, valid = native.locate_batch(refs, [masks[k, :lens[k]]
+                                                for k in range(len(lens))],
+                                         e, flags, mo, nthreads=0)
+        secs = time.perf_counter() - t0
+        self.cpp_s += secs
+        return out, valid, secs
+
+    def py_locate(self, refs, masks, lens, rows, e, flags, mo, results):
+        """Queue the Python oracle's locate of ``refs`` in the reads
+        ``rows`` (chunks of :data:`PY_CHUNK` reads a job); when the phase
+        collects it, each of ``results`` [(name, LocateResult of every
+        read, expected disagreement mask of every read or None)] is held
+        against it."""
+        import numpy as np
+        jobs = [self.pool.apply_async(oracle_locate_rows, (
+            refs, [masks[k, :lens[k]] for k in rows[i:i + PY_CHUNK]], e,
+            int(flags), mo)) for i in range(0, len(rows), PY_CHUNK)]
+
+        def compare(res):
+            out = np.array([[r or (0,) * 6 for r in row] for row in res],
+                           np.int64).reshape(len(rows), len(refs), 6)
+            valid = np.array([[r is not None for r in row] for row in res],
+                             bool).reshape(len(rows), len(refs))
+            for name, got, known in results:
+                sub = type(got)(*[np.asarray(v)[rows] for v in got])
+                bad = locate_disagreements(sub, out, valid)
+                want = np.zeros_like(bad) if known is None else known[rows]
+                yield name, int(bad.sum()), int((bad != want).sum())
+
+        self.py_jobs.append((f"{len(rows) * len(refs)} cells ({len(rows)} "
+                             f"reads)", jobs, compare))
+
+    def oracle_locate(self):
+        import numpy as np
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.align import locate as L
+        from tpu_orc_torch.demux import demux as D
+        from tpu_orc_torch.demux.adapters import AdapterBank
+        from tpu_orc_torch.io import encode
+        from tpu_orc_torch.io.fastq import read_fasta
+        from tpu_orc_torch.align.spec import BACK, FRONT
+        recs, _ = synthetic.make_plate(171, seed=7, insert_len=330)
+        coi = [r.seq[:512] for r in recs[:16384]]     # phase 2's reads
+        _, rrecs, _ = self.rrna_plate()
+        rrna = [r.seq[:3584] for r in rrecs[:2048]]   # phase 8's reads
+        rrna[::97] = [""] * len(rrna[::97])
+        banks = self.banks()
+        prim = []
+        for rec in read_fasta(os.path.join(self.adapters,
+                                           "M13_seqs_for_pychopper.fa")):
+            prim += [(rec.id, rec.seq.upper()),
+                     ("-" + rec.id, encode.revcomp(rec.seq.upper()))]
+        infix = AdapterBank.from_pairs(prim, 0.2, "cuda")
+        cases = (("front", banks["front"], FRONT, 3),
+                 ("back", banks["back"], BACK, 3),
+                 ("back", banks["back"], BACK, 0),
+                 ("infix", infix, L.INFIX, 3))
+        rng = np.random.default_rng(15)
+        for label, seqs, n_py in (("16,384 reads x L 512", coi, PY_READS[0]),
+                                  ("2,048 rRNA reads x L 3,584", rrna,
+                                   PY_READS[1])):
+            masks, lens = synthetic.read_masks(seqs, max(map(len, seqs)))
+            longest = max(int(b.lens.max()) for _, b, _, _ in cases)
+            must = np.flatnonzero(lens < longest)
+            rest = np.setdiff1d(np.arange(len(lens)), must)
+            rows = np.sort(np.concatenate([must, rng.choice(
+                rest, max(n_py - len(must), 0), replace=False)]))
+            empty = lens == 0
+            for mode, bank, flags, mo in cases:
+                refs = [encode.encode_ref_masks(s) for s in bank.seqs]
+                e = bank.max_error_rate
+                out, valid, cpp = self.native_locate(refs, masks, lens, e,
+                                                     flags, mo)
+                results = []
+                for impl in ("wf", "ks"):
+                    t0 = time.perf_counter()
+                    L.LOCATE_IMPL = impl
+                    before = L.LAUNCHES.snapshot()
+                    try:
+                        got = D.locate_batch_collect(D.locate_batch_lazy(
+                            bank, seqs, flags, mo))
+                    finally:
+                        L.LOCATE_IMPL = "wf"
+                    key = mode if impl == "wf" else f"ks_{mode}"
+                    assert L.LAUNCHES.snapshot()[key] > before[key], \
+                        f"{impl} {mode}: no kernel launch"
+                    bad = locate_disagreements(got, out, valid)
+                    # ROADMAP 3.4: the wavefront never evaluates cell (0, 0)
+                    known = (impl == "wf" and mode == "back" and mo == 0)
+                    want = np.broadcast_to(empty[:, None], bad.shape) \
+                        if known else np.zeros_like(bad)
+                    name = f"locate {impl} {mode} min_overlap {mo}, {label}"
+                    print(f"   {name}: {bad.size} cells against the C++ "
+                          f"oracle, {int(bad.sum())} disagreements"
+                          + (f" (every adapter on the {int(empty.sum())} "
+                             f"empty reads: ROADMAP 3.4)" if known else "")
+                          + f"; C++ oracle {cpp:.2f} s, the card's run "
+                          f"and the comparison {time.perf_counter() - t0:.2f}"
+                          f" s", flush=True)
+                    assert np.array_equal(bad, want), \
+                        f"{name}: {int((bad != want).sum())} not expected"
+                    results.append((name, got, want if known else None))
+                self.py_locate(refs, masks, lens, rows, e, flags, mo,
+                               results)
+
+    def oracle_batched(self):
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.align import batched as BL
+        from tpu_orc_torch.align import oracle
+        from tpu_orc_torch.align.spec import BACK, FRONT
+        from tpu_orc_torch.demux.adapters import AdapterBank
+        masks, lens, _ = self.batched_reads()
+        rmasks, rlens = self.batched_long_reads()
+        sp5 = AdapterBank.from_fasta(
+            os.path.join(self.adapters, "M13_amplicon_indices_forward.fa"),
+            0.1, "cuda")
+        longb = AdapterBank([f"L{len(a)}" for a in self.longs], self.longs,
+                            0.1, "cuda")
+        b70 = AdapterBank.from_pairs(synthetic.banks(head=11)["sp5"][:4],
+                                     0.1, "cuda")
+        rng = np.random.default_rng(16)
+        for label, bank, (qm, ql), n_py in (
+                ("SP5 59-mers, 2,048 reads x L 512", sp5, (masks, lens),
+                 PY_READS[2]),
+                ("4 x 70 bp, 2,048 reads x L 512", b70, (masks, lens),
+                 PY_READS[2]),
+                ("64-300 bp, 2,048 reads x L 512", longb, (masks, lens),
+                 PY_READS[2]),
+                ("64-300 bp, 2,048 rRNA reads x L 3,584", longb,
+                 (rmasks, rlens), PY_READS[3])):
+            rows = np.sort(rng.choice(len(ql), n_py, replace=False))
+            refs = [bank.masks[a, :bank.lens[a]] for a in range(len(bank))]
+            tabs = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                    for x in (bank.masks, bank.lens, bank.k_table,
+                              bank.n_prefix)]
+            reads = [torch.from_numpy(x).cuda() for x in (qm, ql)]
+            for flags in (FRONT, BACK):
+                out, valid, cpp = self.native_locate(refs, qm, ql, 0.1,
+                                                     flags, 3)
+                t0 = time.perf_counter()
+                got = BL.to_numpy(BL.batched_locate(*tabs, *reads,
+                                                    int(flags), 3))
+                bad = int(locate_disagreements(got, out, valid).sum())
+                name = (f"batched locate {'front' if flags == FRONT else 'back'}"
+                        f", {label}")
+                print(f"   {name}: {out.shape[0] * out.shape[1]} cells "
+                      f"against the C++ oracle, {bad} disagreements; C++ "
+                      f"oracle {cpp:.2f} s, the card's run and the "
+                      f"comparison {time.perf_counter() - t0:.2f} s",
+                      flush=True)
+                assert bad == 0, f"{name}: {bad} disagreements"
+                self.py_locate(refs, qm, ql, rows, 0.1, flags, 3,
+                               [(name, got, None)])
+        # ROADMAP 3.6: BACK on 30 random bp and the first 260 (290) bp of a
+        # 300 bp adapter (test_torch_batched.py's case): tpu_orc's 8-bit
+        # row field gives refstop 4 there; the port both oracles' answer
+        rng = np.random.default_rng(0)
+        seq = lambda n: "".join(rng.choice(list("ACGT"), size=n))
+        adapter = seq(300)
+        reads = [seq(30) + adapter[:260], seq(30) + adapter[:290]]
+        bank = AdapterBank(["a300"], [adapter], 0.1, "cuda")
+        qm, ql = synthetic.read_masks(reads, 320)
+        tabs = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                for x in (bank.masks, bank.lens, bank.k_table,
+                          bank.n_prefix)]
+        got = BL.to_numpy(BL.batched_locate(
+            *tabs, *[torch.from_numpy(x).cuda() for x in (qm, ql)],
+            int(BACK), 3))
+        refs = [bank.masks[0, :300]]
+        out, valid, _ = self.native_locate(refs, qm, ql, 0.1, BACK, 3)
+        py = [oracle.locate(adapter, r, 0.1, BACK, 3).astuple()
+              for r in reads]
+        assert valid.all() and not locate_disagreements(got, out,
+                                                        valid).any()
+        assert [tuple(out[k, 0]) for k in range(2)] == py
+        assert py[0] == (0, 260, 30, 290, 260, 0), py
+        print(f"   batched locate back, ROADMAP 3.6's case (a 300 bp adapter,"
+              f" refstop 260 and 290): equal to both oracles {py}",
+              flush=True)
+
+    def oracle_myers(self):
+        import random
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch import native, synthetic
+        from tpu_orc_torch.align import myers as M
+        from tpu_orc_torch.cluster.scoring import pack_codes
+        from tpu_orc_torch.io import encode
+        rnd = random.Random(3)                  # phase 3's COI bin
+        tmpls = ["".join(rnd.choice("ACGT") for _ in range(500))
+                 for _ in range(4)]
+        seqs = sorted((synthetic.mutate(rnd, tmpls[k % 4], 0.03)
+                       for k in range(1000)), key=len)
+        pc, pl = synthetic.codes(seqs, -(-max(map(len, seqs)) // 32) * 32)
+        _, rrecs, _ = self.rrna_plate()         # phase 3's rRNA reads
+        codes = [encode.encode_codes(r.seq[:3584]) for r in rrecs[:64]]
+        rp, rpl = pack_codes(codes[:8])
+        rt, rtl = pack_codes(codes[8:40])
+        big = sorted((encode.encode_codes(r.seq[:3584])
+                      for r in rrecs[:400]), key=len)
+        bc, bl = pack_codes(big, count_cap=512)
+        rng = np.random.default_rng(17)
+        # (label, patterns and texts, entry points, pairs sampled for the
+        # C++ oracle and for the Python oracle in each mode and entry)
+        for label, (P, PL, T, TL), entries, n_cpp, n_py in (
+                ("COI 1,000 reads", (pc, pl, pc, pl), ("dense", "pairs"),
+                 4096, PY_PAIRS),
+                ("rRNA 8 x 32 reads", (rp, rpl, rt, rtl), ("dense",), 256,
+                 0),
+                ("rRNA 400 reads", (bc[:400], bl[:400], bc[:400], bl[:400]),
+                 ("pairs",), 256, 0)):
+            n, m = len(PL), len(TL)
+            W = M.n_words(P.shape[1])
+            label = f"{label}, W {W}"
+            TI, TJ = M.tile_shape(W)
+            lo, hi = np.minimum.outer(PL, TL), np.maximum.outer(PL, TL)
+            gf = np.zeros((-(-n // TI) * TI, -(-m // TJ) * TJ), bool)
+            gf[:n, :m] = (np.arange(n)[:, None] < np.arange(m)[None, :]) & \
+                (lo * 1.05 >= hi)
+            need = gf.reshape(gf.shape[0] // TI, TI, gf.shape[1] // TJ,
+                              TJ).any(axis=(1, 3))
+            tiles = np.argwhere(need).astype(np.int32)
+            listed = np.kron(need, np.ones((TI, TJ), bool))[:n, :m]
+            cand = {"dense": np.argwhere(np.ones((n, m), bool)),
+                    "pairs": np.argwhere(listed)}
+            for mode in ("NW", "SHW", "HW"):
+                t0 = time.perf_counter()
+                cpp = 0.0
+                grids = {}
+                if "dense" in entries:
+                    up = M._upload(P, PL, T, TL, n, m, "cuda")
+                    dist, pos = M.distances(P, PL, T, TL, mode, device="cuda")
+                    peq = M.build_peq(torch.from_numpy(P).cuda(), W,
+                                      torch.from_numpy(PL).cuda())
+                    td, tp = M.myers_tile(
+                        peq, torch.from_numpy(PL).cuda(),
+                        torch.from_numpy(T).cuda(),
+                        torch.from_numpy(TL).cuda(), mode, W)
+                    assert np.array_equal(td.cpu().numpy(), dist) and \
+                        np.array_equal(tp.cpu().numpy(), pos), \
+                        f"myers_tile {label} {mode} differs from distances"
+                    grids["dense"] = {"distances and myers_tile": dist}
+                    for d in M.DESIGNS:
+                        x, _ = M.myers_cuda(*up, mode, design=d)
+                        grids["dense"][f"dense, {d} design"] = \
+                            x.cpu().numpy()
+                if "pairs" in entries:
+                    gd, _ = M.distances_pairs(P, PL, T, TL, tiles, mode,
+                                              device="cuda", fetch_pos=False)
+                    grids["pairs"] = {"distances_pairs": gd}
+                    upp = M._upload(P, PL, T, TL, gf.shape[0], gf.shape[1],
+                                    "cuda")
+                    tt = torch.from_numpy(tiles).cuda()
+                    ti, tj = tt[:, 0].contiguous(), tt[:, 1].contiguous()
+                    for d in M.DESIGNS:
+                        x, _ = M.myers_cuda(*upp, mode, ti, tj, TI, TJ,
+                                            design=d)
+                        grids["pairs"][f"pairs, {d} design"] = \
+                            x.cpu().numpy()
+                for what, grid in grids.items():
+                    c = cand[what]
+                    k = min(n_cpp, len(c))
+                    pairs = c[np.sort(rng.choice(len(c), k, replace=False))]
+                    c0 = time.perf_counter()
+                    want = np.array([native.edit_distance(
+                        P[i, :PL[i]], T[j, :TL[j]], mode) for i, j in pairs])
+                    cpp += time.perf_counter() - c0
+                    for name, x in grid.items():
+                        bad = int((x[pairs[:, 0], pairs[:, 1]] != want).sum())
+                        print(f"   myers {mode} {label}, {name}: {k} pairs "
+                              f"against the C++ oracle, {bad} disagreements",
+                              flush=True)
+                        assert bad == 0, (label, mode, name, bad)
+                    if n_py:
+                        sims = M.similarity_matrix(
+                            grid["distances and myers_tile"], PL, TL) \
+                            if mode == "NW" and what == "dense" else None
+                        self.py_myers(f"myers {mode} {label}", grid,
+                                      pairs[:n_py], P, PL, T, TL, mode, seqs,
+                                      sims)
+                self.cpp_s += cpp
+                print(f"   myers {mode} {label}: {time.perf_counter() - t0:.2f}"
+                      f" s, the C++ oracle {cpp:.2f} s of it", flush=True)
+
+    def py_myers(self, label, grid, pairs, P, PL, T, TL, mode, strs, sims):
+        """Queue the Python oracle's edit distances of ``pairs`` (and,
+        where ``sims`` is given, its ``similarity`` of the strings ``strs``)
+        in jobs of :data:`PY_CHUNK` pairs; every grid of ``grid`` (and
+        ``sims``) held against them when the phase collects them."""
+        import numpy as np
+        args = [(P[i, :PL[i]], T[j, :TL[j]],
+                 (strs[i], strs[j]) if sims is not None else None)
+                for i, j in pairs]
+        jobs = [self.pool.apply_async(oracle_edit_rows, (
+            args[i:i + PY_CHUNK], mode)) for i in range(0, len(args),
+                                                        PY_CHUNK)]
+
+        def compare(res):
+            d = np.array([r[0] for r in res])
+            for name, x in grid.items():
+                bad = int((x[pairs[:, 0], pairs[:, 1]] != d).sum())
+                yield f"{label}, {name}", bad, bad
+            if sims is not None:
+                s = np.array([r[1] for r in res])
+                bad = int((sims[pairs[:, 0], pairs[:, 1]] != s).sum())
+                yield f"{label}, similarity_matrix", bad, bad
+
+        self.py_jobs.append((f"{len(pairs)} pairs", jobs, compare))
+
+
 #: worker of phase 14 (e): one process of two on localhost
 MULTIHOST_WORKER = r"""
 import glob, json, os, sys
@@ -1951,6 +2378,44 @@ def union_us(events) -> float:
     return total
 
 
+def locate_disagreements(res, out, valid):
+    """[B, A] bool: the (read, adapter) cells where a LocateResult ``res``
+    differs from an oracle's answer (``out`` [B, A, 6] in Location order,
+    ``valid`` [B, A]): in validity, or where both are valid in one of the
+    six location fields (an invalid cell's fields are unspecified)."""
+    import numpy as np
+    v = np.asarray(res.valid).astype(bool)
+    got = np.stack([np.asarray(getattr(res, f)) for f in (
+        "refstart", "refstop", "querystart", "querystop", "matches",
+        "errors")], axis=-1)
+    return (v != valid) | (v & valid & (got != out).any(axis=-1))
+
+
+def oracle_locate_rows(refs, reads, e, flags, mo):
+    """Phase 15's pool job: the Python oracle's locate of every adapter
+    mask in each read mask ([[None or Location tuple]]), and its CPU
+    seconds."""
+    from tpu_orc_torch.align import oracle
+    t0 = time.process_time()
+    out = []
+    for q in reads:
+        row = [oracle.locate(r, q, e, flags, mo) for r in refs]
+        out.append([None if x is None else x.astuple() for x in row])
+    return out, time.process_time() - t0
+
+
+def oracle_edit_rows(args, mode):
+    """Phase 15's pool job: the Python oracle's edit distance of each
+    (pattern codes, text codes, strings or None) in ``mode``, with its
+    NW ``similarity`` of the strings where given; and its CPU seconds."""
+    from tpu_orc_torch.align import oracle
+    t0 = time.process_time()
+    out = [(oracle.edit_distance(p, t, mode),
+            None if ab is None else oracle.similarity(*ab))
+           for p, t, ab in args]
+    return out, time.process_time() - t0
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -1958,8 +2423,8 @@ def main(argv=None) -> int:
                                  "tpu_orc_torch (see the module docstring)")
     ap.add_argument("--phases", default=None,
                     help="run only these phases after setup, e.g. '6,14' "
-                         "(a check call: it prints no kernel line and no "
-                         "result line)")
+                         "or '15' (a check call: it prints no kernel line "
+                         "and no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2016,6 +2481,7 @@ def main(argv=None) -> int:
     phase("14d run_all and cli run-all on the mesh", s.mesh_run_all,
           [p14, p6])
     phase("14e two processes on localhost", s.mesh_processes, [p14])
+    phase("15 locate and Myers kernels against both oracles", s.oracles)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"chip_smoke: failed phases: {s.failed}", file=sys.stderr)

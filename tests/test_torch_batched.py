@@ -3,14 +3,16 @@
 
 The port's plain ``batched_locate`` must equal tpu_orc's XLA
 ``batched_locate`` (JAX on the CPU) on all nine outputs for every valid
-flag set, error rate and min_overlap, at adapters up to 255 bp. From
-256 bp on, tpu_orc's STOP_WITHIN_SEQ1 reduction packs the row into 8
-bits and goes wrong; there the port equals the Python and C++ oracles on
-the six location fields and tpu_orc on nloc/nacc, and one pinned case
-shows tpu_orc's difference. The demux routes a locate as tpu_orc does:
-banks of 63 bp or more and flag sets other than FRONT/BACK/INFIX take
-the batched locate. Tolerance: none (integer outputs, files compared
-byte for byte). Inputs are made with numpy from fixed seeds.
+flag set, error rate and min_overlap, at adapters up to 255 bp (that
+sweep is in test_torch_batched_plain.py, which uses this file's
+helpers). From 256 bp on, tpu_orc's STOP_WITHIN_SEQ1 reduction packs the
+row into 8 bits and goes wrong; there the port equals the Python and C++
+oracles on the six location fields and tpu_orc on nloc/nacc, and one
+pinned case shows tpu_orc's difference. The demux routes a locate as
+tpu_orc does: banks of 63 bp or more and flag sets other than
+FRONT/BACK/INFIX take the batched locate. Tolerance: none (integer
+outputs, files compared byte for byte). Inputs are made with numpy from
+fixed seeds.
 """
 import numpy as np
 import pytest
@@ -95,28 +97,6 @@ def _reads(reads, L):
 
 def _ref_fields(res):
     return np.stack([np.asarray(v) for v in res])
-
-
-@pytest.mark.parametrize("flags", FLAG_SETS)
-def test_plain_equals_reference_batched(flags):
-    """All 9 fields, e in {0, 0.1, 0.2}, min_overlap 0 and 3, adapters of
-    4-255 bp."""
-    refs, reads = _case(flags, (4, 17, 40, 63, 130, 255), 24, 320)
-    rm, rl = _bank(refs)
-    qm, ql = _reads(reads, 320)
-    hits = 0
-    for e in (0.0, 0.1, 0.2):
-        kt, npf = make_k_table(e, rm, rl), make_n_prefix(rm)
-        for mo in (0, 3):
-            want = _ref_fields(ref_batched_locate(rm, rl, kt, npf, qm, ql,
-                                                  flags, mo))
-            got = BL.batched_locate_plain(rm, rl, kt, npf, qm, ql, flags,
-                                          mo).numpy()
-            bad = [BL.FIELDS[k] for k in range(9)
-                   if not np.array_equal(got[k], want[k])]
-            assert not bad, (e, mo, bad)
-            hits += int(got[0].sum())
-    assert hits > 0
 
 
 def test_batched_locate_returns_result_on_inputs_device():

@@ -418,6 +418,37 @@ def test_myers_tiles_launches_the_chosen_design(cuda):
     assert M.LAUNCHES.snapshot()[key] == before[key] + 1
 
 
+@pytest.mark.parametrize("mode", ["NW", "SHW", "HW"])
+def test_myers_tile_on_cuda_equals_the_oracle(cuda, mode):
+    """``myers_tile`` (tpu_orc's [P, W, 6] Peq and [T, N] texts) on CUDA
+    tensors: the distances of the Python oracle on every pair, and the
+    distances and positions of ``myers_tiles`` on the packed layout; one
+    dense launch."""
+    from tpu_orc_torch.align import oracle
+    rng = np.random.default_rng(43)
+    pats = _seqs(rng, 5, 20, 80)
+    texts = _seqs(rng, 7, 1, 120)
+    texts[2] = "AC" + pats[1] + "GT"
+    pc, pl = synthetic.codes(pats, 96)
+    tc, tl = synthetic.codes(texts, 128)
+    W = M.n_words(pc.shape[1])
+    peq = M.build_peq(torch.from_numpy(pc).to(cuda), W,
+                      torch.from_numpy(pl).to(cuda))
+    args = [torch.from_numpy(x).to(cuda) for x in (pl, tc, tl)]
+    before = sum(M.LAUNCHES.snapshot().values())
+    dist, pos = M.myers_tile(peq, args[0], args[1], args[2], mode, W)
+    torch.cuda.synchronize()
+    assert sum(M.LAUNCHES.snapshot().values()) == before + 1
+    d = dist.cpu().numpy()
+    for i, p in enumerate(pats):
+        for j, t in enumerate(texts):
+            assert d[i, j] == oracle.edit_distance(p, t, mode), (i, j)
+    up = M._upload(pc, pl, tc, tl, len(pats), len(texts), cuda)
+    pd, pp = M.myers_tiles(*up, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(pd, dist) and torch.equal(pp, pos)
+
+
 PILEUP_CASES = {
     "single": [(500, 100)],
     "multi": [(40, 3), (500, 50), (1700, 9), (260, 1), (33, 20), (100, 8)],

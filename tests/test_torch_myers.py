@@ -276,3 +276,94 @@ def test_pipeline_inputs_pass_the_checks():
     packed, lens = pack_codes(reads)
     d, p = M.distances(packed, lens, packed, lens, "HW", device="cpu")
     assert d.shape == (9, 9) and (np.diag(d) == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# tpu_orc/align/myers.py's public API: n_words, build_peq, myers_tile,
+# similarity_matrix (exact: integers, and rounded floats compared by ==)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("max_len", [0, 1, 31, 32, 33, 64, 65, 500, 3584])
+def test_n_words_equals_reference(max_len):
+    assert M.n_words(max_len) == ref_myers.n_words(max_len)
+
+
+def _build_peq_case(rng, P, M_, W, lens):
+    codes = rng.integers(0, 5, size=(P, M_)).astype(np.uint8)
+    codes[0, :3] = 4                      # N in the pattern
+    m_lens = None if lens is None else rng.integers(
+        1, lens + 1, size=P).astype(np.int32)
+    return codes, m_lens
+
+
+@pytest.mark.parametrize("P, M_, W, lens", [
+    (5, 45, 2, None),        # width not a multiple of 32, no m_lens
+    (6, 45, 2, 45),          # m_lens masking
+    (4, 70, 3, 70),          # a pattern longer than one word
+    (3, 100, 2, 64),         # codes past the words (cut at W * 32)
+    (7, 32, 1, 32),          # exactly one word
+])
+def test_build_peq_equals_reference(P, M_, W, lens):
+    rng = np.random.default_rng(P * 100 + M_)
+    codes, m_lens = _build_peq_case(rng, P, M_, W, lens)
+    want = np.asarray(ref_myers.build_peq(
+        codes, W, None if m_lens is None else m_lens)).astype(np.int64)
+    got = M.build_peq(torch.from_numpy(codes), W,
+                      None if m_lens is None else torch.from_numpy(m_lens))
+    assert got.shape == (P, W, 6) and got.dtype == torch.int64
+    assert int(got.min()) >= 0 and int(got.max()) < 1 << 32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[:, :, 5].any() and want[:, :, 4].any()
+
+
+def _tile_case(seed, P, T, lo, hi):
+    """Patterns and texts (with N, pad 4 past each text) as tpu_orc's
+    myers_tile takes them."""
+    rng = np.random.default_rng(seed)
+    pats = _seqs(rng, P, lo, hi)
+    texts = _related(rng, T // 2, hi, 0.1) + _seqs(rng, T - T // 2, 1, hi + 20)
+    pc, pl = _pack(pats)
+    tc, tl = _pack(texts)
+    return pc, pl, tc, tl
+
+
+@pytest.mark.parametrize("mode", ["NW", "SHW", "HW"])
+@pytest.mark.parametrize("P, T, lo, hi", [
+    (9, 13, 1, 30),          # one word, W not a multiple of 32 columns
+    (6, 10, 40, 75),         # patterns over one word (W 3)
+])
+def test_myers_tile_equals_reference(mode, P, T, lo, hi):
+    import jax.numpy as jnp
+    pc, pl, tc, tl = _tile_case(P * 7 + hi, P, T, lo, hi)
+    W = ref_myers.n_words(pc.shape[1])
+    ref_peq = ref_myers.build_peq(jnp.asarray(pc), W, jnp.asarray(pl))
+    wd, wp = ref_myers.myers_tile(ref_peq, jnp.asarray(pl), jnp.asarray(tc),
+                                  jnp.asarray(tl), mode, W)
+    peq = M.build_peq(torch.from_numpy(pc), W, torch.from_numpy(pl))
+    gd, gp = M.myers_tile(peq, torch.from_numpy(pl), torch.from_numpy(tc),
+                          torch.from_numpy(tl), mode, W)
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    # int32 bits of the same words give the same answer
+    bits = M.myers_tile(peq.to(torch.int32), torch.from_numpy(pl),
+                        torch.from_numpy(tc), torch.from_numpy(tl), mode)
+    assert torch.equal(bits[0], gd) and torch.equal(bits[1], gp)
+    # and so does the packed layout through myers_tiles
+    up = M._upload(pc, pl, tc, tl, P, T, "cpu")
+    pd, pp = M.myers_tiles(*up, mode)
+    assert torch.equal(pd, gd) and torch.equal(pp, gp)
+
+
+def test_similarity_matrix_equals_reference():
+    rng = np.random.default_rng(12)
+    m_lens = np.array([400, 2000, 8, 1, 333], np.int32)
+    n_lens = np.array([400, 2000, 7, 250, 1000, 1], np.int32)
+    dist = rng.integers(0, 9, size=(5, 6)).astype(np.int32)
+    dist[0, 0] = 1       # 1 - 1/400 = 0.9975: a half-way tie
+    dist[1, 1] = 1       # 1 - 1/2000 = 0.9995: another
+    dist[4, 4] = 5       # 1 - 5/1000 = 0.995: exact at 3 digits
+    want = ref_myers.similarity_matrix(dist, m_lens, n_lens)
+    got = M.similarity_matrix(dist, m_lens, n_lens)
+    assert got.dtype == want.dtype == np.float64
+    assert (got == want).all()
+    assert got[0, 0] == np.round(0.9975, 3) and got[1, 1] == np.round(0.9995, 3)

@@ -6,11 +6,10 @@ tpu_orc's run on one synthetic plate of 98 reads; the output trees must
 be byte-identical, except the timings (and the completion order of the
 concurrent bins) in metrics.json and run_report.json. The CLI's demux
 subcommand is held against tpu_orc's stage the same way. Another test
-runs the port's ``run_all`` in a fresh interpreter where neither
+imports every module of the port in a fresh interpreter where neither
 ``import jax`` nor ``import tpu_orc`` works (the GPU host has no JAX, and
-the port imports nothing of tpu_orc), with each consensus pileup
-backend, on a mesh (``use_mesh``), and ``run_all -a RNA`` with the
-Kogge-Stone locate.
+the port imports nothing of tpu_orc); the port's ``run_all`` runs in such
+an interpreter in test_torch_nojax_{coi,mesh,rrna}.py.
 """
 import json
 import os
@@ -161,80 +160,6 @@ def test_cli_refuses_absent_cuda(tmp_path, monkeypatch):
                   "--adapters-dir", str(tmp_path)])
 
 
-JAX_FREE = r"""
-import contextlib, io, json, os, sys, tempfile
-sys.modules["jax"] = None          # any import of jax now fails
-sys.modules["tpu_orc"] = None      # and so does any import of tpu_orc
-import torch
-torch.set_num_threads(1)
-from tpu_orc_torch import synthetic
-from tpu_orc_torch.cluster import consensus
-from tpu_orc_torch.io.fastq import write_records
-from tpu_orc_torch.pipeline.stages import PipelineConfig, run_all
-import tpu_orc_torch.cli  # the whole path
-d = synthetic.write_adapter_dir(tempfile.mkdtemp())
-recs, _ = synthetic.make_plate(10, n5=2, n27=2, seed=2, insert_len=300)
-fq = os.path.join(tempfile.mkdtemp(), "plate.fastq")
-write_records(fq, recs, fmt="fastq")
-cons = {}
-for backend in ("native", "device"):
-    consensus.PILEUP_BACKEND = backend
-    out = tempfile.mkdtemp()
-    with contextlib.redirect_stdout(io.StringIO()):
-        rep = run_all(fq, out, "x", "COI",
-                      PipelineConfig(d, device="cpu", bin_workers=1))
-    sdir = os.path.join(out, "sorted")
-    cons[backend] = {b: open(os.path.join(sdir, b, "consensusfile.fasta")
-                             ).read() for b in sorted(os.listdir(sdir))
-                     if os.path.isdir(os.path.join(sdir, b))}
-# the multi-device path on a mesh of the CPU listed twice
-from tpu_orc_torch.dist.sharded import make_mesh
-consensus.PILEUP_BACKEND = "native"
-PipelineConfig.mesh = lambda self: make_mesh(devices=["cpu", "cpu"])
-out = tempfile.mkdtemp()
-with contextlib.redirect_stdout(io.StringIO()):
-    mrep = run_all(fq, out, "x", "COI",
-                   PipelineConfig(d, device="cpu", use_mesh=True,
-                                  bin_workers=1))
-sdir = os.path.join(out, "sorted")
-mesh_same = cons["native"] == {
-    b: open(os.path.join(sdir, b, "consensusfile.fasta")).read()
-    for b in sorted(os.listdir(sdir)) if os.path.isdir(os.path.join(sdir, b))}
-# the rRNA path with the Kogge-Stone locate
-from tpu_orc_torch.align import locate
-locate.LOCATE_IMPL = "ks"
-rrecs, _ = synthetic.make_rrna_plate(8, n5=1, n27=2, seed=3,
-                                     error_rate=0.03)
-rfq = os.path.join(tempfile.mkdtemp(), "rrna.fastq")
-write_records(rfq, rrecs, fmt="fastq")
-with contextlib.redirect_stdout(io.StringIO()):
-    rrep = run_all(rfq, tempfile.mkdtemp(), "r", "RNA",
-                   PipelineConfig(d, device="cpu"))
-print(json.dumps({"bins": rep["demux"]["bins"],
-                  "groups": sum(b["species_groups"]
-                                for b in rep["barcodes"].values()),
-                  "same": cons["native"] == cons["device"],
-                  "mesh": [mrep["demux"] == rep["demux"], mesh_same],
-                  "rrna": [b.get("rrna") for b in rrep["barcodes"].values()],
-                  "loaded": sorted(m for m in sys.modules
-                                   if m.split(".")[0] in ("jax", "tpu_orc")
-                                   and sys.modules[m] is not None)}))
-"""
-
-
-def test_port_runs_without_jax():
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", JAX_FREE], env=env,
-                         capture_output=True, text=True, timeout=600,
-                         cwd=REPO)
-    assert out.returncode == 0, out.stderr[-2000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["loaded"] == []
-    assert res["bins"] == 4 and res["groups"] >= 3 and res["same"]
-    assert res["mesh"] == [True, True]
-    assert {"18S": 1, "28S": 1} in res["rrna"]
-
-
 JAX_FREE_MODULES = r"""
 import contextlib, importlib, io, json, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None          # any import of jax now fails
@@ -248,7 +173,8 @@ names = sorted(m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 from tpu_orc_torch import cli
-from tpu_orc_torch.align import batched
+from tpu_orc_torch.align import batched, oracle
+from tpu_orc_torch.align.spec import FRONT
 from tpu_orc_torch.align.tables import make_k_table, make_n_prefix
 from tpu_orc_torch.utils.profiling import device_trace
 rm = np.array([[1, 2, 4, 8, 1, 2]], np.uint8)
@@ -257,6 +183,7 @@ qm = np.array([[8, 1, 2, 4, 8, 1, 2, 0]], np.uint8)
 ql = np.array([7], np.int32)
 res = batched.batched_locate(rm, rl, make_k_table(0.1, rm, rl),
                              make_n_prefix(rm), qm, ql, 2)
+loc = oracle.locate("ACGTACGT", "TTTACGTACGTGG", 0.1, FRONT)
 tdir = tempfile.mkdtemp()
 with device_trace(tdir):
     torch.ones(3).sum()
@@ -269,6 +196,7 @@ with contextlib.redirect_stdout(io.StringIO()) as log:
 print(json.dumps({"modules": len(names),
                   "valid": int(res.valid[0, 0]),
                   "refstop": int(res.refstop[0, 0]),
+                  "oracle": list(loc.astuple()),
                   "trace": len(os.listdir(tdir)),
                   "cli": json.loads(log.getvalue().splitlines()[-1]),
                   "loaded": sorted(m for m in sys.modules
@@ -278,9 +206,10 @@ print(json.dumps({"modules": len(names),
 
 
 def test_every_port_module_imports_without_jax():
-    """Every module of the port, the batched locate, ``device_trace``
-    and the stage 06-09 CLI in a fresh interpreter where neither
-    ``import jax`` nor ``import tpu_orc`` works."""
+    """Every module of the port, the batched locate, the Python oracle's
+    locate, ``device_trace`` and the stage 06-09 CLI in a fresh
+    interpreter where neither ``import jax`` nor ``import tpu_orc``
+    works."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", JAX_FREE_MODULES], env=env,
                          capture_output=True, text=True, timeout=300,
@@ -288,6 +217,7 @@ def test_every_port_module_imports_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
-    assert res["modules"] >= 45
+    assert res["modules"] >= 46
     assert res["valid"] == 1 and res["refstop"] == 6
+    assert res["oracle"] == [0, 8, 3, 11, 8, 0]
     assert res["trace"] == 1 and res["cli"] == {"kept": 1}

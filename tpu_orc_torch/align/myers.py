@@ -17,6 +17,11 @@ by the device of its tensors:
 
 Distances and positions are bit-identical to the Pallas kernels: the
 word width changes how the DP is cut into words, not its values.
+
+``tpu_orc/align/myers.py``'s public API is here too: :func:`n_words`
+(:35), :func:`build_peq` (:39, its ``[P, W, 6]`` layout), :func:`myers_tile`
+(:66, the XLA Myers, here an adapter onto :func:`myers_tiles`) and
+:func:`similarity_matrix` (:162).
 """
 from __future__ import annotations
 
@@ -397,3 +402,80 @@ def distances_with_pos(patterns_codes: np.ndarray, m_lens: np.ndarray,
     (with distance m) when no column beats column 0."""
     return distances(patterns_codes, m_lens, texts_codes, n_lens, mode,
                      device)
+
+
+# ---------------------------------------------------------------------------
+# tpu_orc/align/myers.py's public API
+# ---------------------------------------------------------------------------
+
+def n_words(max_len: int) -> int:
+    """32-bit words of a pattern of ``max_len`` bp (at least one)."""
+    return max(1, -(-max_len // WORD))
+
+
+def build_peq(codes, W: int, m_lens=None) -> torch.Tensor:
+    """codes [P, M] uint8 (0..3 bases, 4 = N) -> Peq [P, W, 6] int64.
+
+    ``tpu_orc``'s layout (``build_peq``, :39): channel c of word w holds
+    bit i when pattern position 32w + i has code c. Channel 4 is the N
+    channel (N matches N, as edlib compares bytes); channel 5 is the dead
+    pad channel, always zero. Positions at or beyond ``m_lens`` (and past
+    M) are forced onto the pad channel. The 32-bit words are held as
+    int64 values in [0, 2**32), torch's uint32 having few operations.
+    ``codes`` is a tensor or a numpy array; the Peq lies on its device."""
+    codes = torch.as_tensor(codes)
+    P, M = codes.shape
+    dev = codes.device
+    Mp = W * WORD
+    c = torch.full((P, Mp), 5, dtype=torch.int64, device=dev)
+    k = min(M, Mp)
+    c[:, :k] = codes[:, :k].to(torch.int64)
+    if m_lens is not None:
+        m = torch.as_tensor(m_lens, device=dev).to(torch.int64)
+        c = torch.where(torch.arange(Mp, device=dev)[None, :] < m[:, None],
+                        c, 5)
+    c = c.view(P, W, WORD)
+    onehot = c[..., None] == torch.arange(5, device=dev)
+    weights = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
+        WORD, dtype=torch.int64, device=dev)
+    peq5 = (onehot * weights[None, None, :, None]).sum(dim=2)   # [P, W, 5]
+    return torch.cat([peq5, torch.zeros_like(peq5[..., :1])], dim=2)
+
+
+def myers_tile(peq, m_lens, texts, n_lens, mode: str = "NW",
+               W: int | None = None):
+    """Edit distance of every pattern against every text, ``tpu_orc``'s
+    ``myers_tile`` (:66): ([P, T] int32 distances, [P, T] int32 text end
+    positions).
+
+    peq [P, >= W, 6] (:func:`build_peq`; int64 values or int32 bits of
+    the 32-bit words), m_lens [P] pattern lengths (>= 1), texts [T, N]
+    uint8 codes (pad 4), n_lens [T] text lengths, all on one device. For
+    NW the position is ``n_lens``; for SHW/HW the earliest 1-based column
+    at the minimum (0 when no column beats column 0). The Peq goes to the
+    packed layout and the texts are transposed for :func:`myers_tiles`:
+    on CUDA tensors the dense entry of ``csrc/myers.cu`` (counted under
+    its ``dense_*`` launch key), on CPU tensors its plain version."""
+    if W is None:
+        W = peq.shape[1]
+    P = peq.shape[0]
+    words = peq[:, :W, :5].to(torch.int64) & 0xFFFFFFFF
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    packed = torch.zeros((P, W, NCHAN), dtype=torch.int32,
+                         device=peq.device)
+    packed[:, :, :5] = words.to(torch.int32)
+    return myers_tiles(packed.view(P, W * NCHAN),
+                       torch.as_tensor(m_lens).to(torch.int32).contiguous(),
+                       texts.t().contiguous(),
+                       torch.as_tensor(n_lens).to(torch.int32).contiguous(),
+                       mode)
+
+
+def similarity_matrix(dist: np.ndarray, m_lens: np.ndarray,
+                      n_lens: np.ndarray) -> np.ndarray:
+    """Reference similarity: round(1 - d/len(longer), 3)
+    (amplicon_sorter.py:225-235). Rounding matches Python round-half-even
+    on the float64 quotient."""
+    longer = np.maximum(np.asarray(m_lens)[:, None], np.asarray(n_lens)[None, :])
+    sim = 1.0 - dist / np.maximum(longer, 1)
+    return np.round(sim, 3)
