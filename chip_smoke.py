@@ -4,8 +4,9 @@ path (run_all) on a synthetic 96-bin plate, the rRNA path with the
 Kogge-Stone locate on a synthetic 96-bin rRNA plate, the batched locate
 through the demux on lengthened banks, a traced run_all, stages 06-09
 and prewarm through the CLI, and the multi-device path over every
-visible card, check what comes out, and hold every locate and Myers
-kernel against both oracles of the port (C++ and Python).
+visible card, check what comes out, hold every locate and Myers
+kernel against both oracles of the port (C++ and Python), and run the
+port's bench at bench.py's sizes.
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 6,14   # setup and these phases only
@@ -128,7 +129,17 @@ Phases:
      sample against the Python oracle (run in spawned processes meanwhile);
      no disagreement but ROADMAP 3.4's (the wavefront locate in BACK at
      min_overlap 0 on the empty reads), asserted as that exact set; the
-     cells compared, the disagreements and the time of each case printed.
+     cells compared, the disagreements and the time of each case printed;
+16. the port's bench (tpu_orc_torch/bench.py, bench.py's measurements)
+     in this process with --reps 1: every section at bench.py's sizes
+     (16,384 demux reads, the 1,024 x 1,024 tile, the 1,000-read COI and
+     3.5 kb bins, 8,192 reorient reads, the 96-bin x 80-read plate), one
+     timed rep each, the one-core baselines' windows kept; its JSON line
+     printed; every key of BENCH_KEYS a number, ``correct`` true (its
+     checks: each demux read in its bin, 64 tile entries equal to the
+     C++ oracle, 2 species in each sort, 96 bins and 96 species groups on
+     the plate), the device this card, and each section's kernels
+     launched.
 Phase 1 prints each kernel source's ptxas report (registers, stack
 frame). Prints a JSON line of per-kernel numbers, the card line, and last
 the result line. Exits non-zero, printing no result, when any phase fails or
@@ -182,6 +193,33 @@ THREAD_DESIGN_MS = {"batched_locate_front": 4.128,
                     "batched_locate_front_long": 31.371,
                     "batched_locate_back_long": 36.225}
 
+#: phase 16: the keys of the bench's line (``tpu_orc_torch/bench.py``)
+#: that must hold numbers
+BENCH_KEYS = (
+    "value", "vs_baseline", "demux_median_s", "demux_reps",
+    "cpu_demux_reads_per_s_1core", "vs_ref_24core",
+    "cluster_device_cells_per_s", "cluster_device_pairs_per_s",
+    "cluster_median_s", "cluster_reps", "cluster_single_dispatch_min_s",
+    "cluster_single_dispatch_cells_per_s",
+    "cluster_single_dispatch_median_s", "cluster_single_dispatch_reps",
+    "cluster_cpu_cells_per_s_1core", "cluster_vs_cpu",
+    "cluster_vs_ref_12core", "sort_1000reads_e2e_s", "sort_median_s",
+    "sort_reps", "sort_species_found", "sort_longread_e2e_s",
+    "sort_longread_median_s", "sort_longread_reps",
+    "sort_longread_species_found", "reorient_reads_per_s",
+    "reorient_median_s", "reorient_reps", "reorient_cpu_reads_per_s_1core",
+    "reorient_vs_ref_24core", "reorient_pass_reads",
+    "multidev_single_chip.demux_single_s",
+    "multidev_single_chip.demux_multi1_s",
+    "multidev_single_chip.demux_overhead_pct",
+    "multidev_single_chip.pairwise_single_s",
+    "multidev_single_chip.pairwise_multi1_s",
+    "multidev_single_chip.pairwise_overhead_pct", "pipeline_plate_wall_s",
+    "pipeline_plate_median_s", "pipeline_plate_reps",
+    "pipeline_plate_reads_per_s", "pipeline_plate_bins",
+    "pipeline_plate_species_groups", "build_s", "wall_s",
+    "max_memory_allocated_bytes")
+
 #: phase 15's samples for the Python oracle, which walks each DP cell in
 #: the interpreter (~1 us a cell): reads per locate case (COI, rRNA; the
 #: rRNA sample holds its 22 empty reads, and each sample every read
@@ -192,13 +230,6 @@ THREAD_DESIGN_MS = {"batched_locate_front": 4.128,
 PY_READS = (32, 26, 8, 2)
 PY_PAIRS = 16
 PY_CHUNK = 4
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
 
 def cuda_ms(fn, reps=5):
     """Median ms of ``reps`` timed calls after one warm-up, from CUDA
@@ -336,6 +367,7 @@ class Smoke:
     def setup(self):
         torch = self.torch
         from tpu_orc_torch import _build, synthetic
+        from tpu_orc_torch.bench import card_line
         print(card_line())
         print(f"python {sys.version.split()[0]} torch {torch.__version__} "
               f"cuda {torch.version.cuda} device "
@@ -2271,6 +2303,61 @@ class Smoke:
 
         self.py_jobs.append((f"{len(pairs)} pairs", jobs, compare))
 
+    # -- phase 16 --------------------------------------------------------
+    def bench(self):
+        """The port's bench (``python3 -m tpu_orc_torch.bench --reps 1``)
+        in this process: every section at bench.py's sizes, one timed rep
+        each. Its JSON line is printed here; every key of BENCH_KEYS must
+        be a number, ``correct`` true, the device this card, and each
+        section must have launched the kernels of its path."""
+        import contextlib
+        import io
+        torch = self.torch
+        from tpu_orc_torch import bench
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--reps", "1"])
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(line, flush=True)
+        out = json.loads(line)
+        d = out["details"]
+        assert rc == 0 and d["correct"] is True, (rc, d["checks"])
+        assert d["backend"] == "cuda"
+        flat = dict(d, **{f"multidev_single_chip.{k}": v for k, v in
+                          d["multidev_single_chip"].items()},
+                    value=out["value"], vs_baseline=out["vs_baseline"])
+        bad = [k for k in BENCH_KEYS
+               if not isinstance(flat.get(k), (int, float))
+               or isinstance(flat.get(k), bool)]
+        assert not bad, f"not numbers: {bad}"
+        assert d["pipeline_plate_stage_s"] and all(
+            isinstance(v, float) for v in d["pipeline_plate_stage_s"].values())
+        dev = d["device"]
+        assert dev["name"] == torch.cuda.get_device_name(0), dev
+        assert dev["count"] == torch.cuda.device_count() and dev["cpu_count"]
+        assert dev["nvidia_smi_name"] + ", " + dev["power_limit"] == \
+            bench.card_line(), dev
+        dense, pairs = ("dense_thread", "dense_warp"), ("pairs_thread",
+                                                       "pairs_warp")
+        need = [("demux", "locate", ("front",)),
+                ("demux", "locate", ("back",)),
+                ("cluster", "myers", dense), ("cluster1", "myers", dense),
+                ("sort", "myers", pairs), ("sort", "myers", dense),
+                ("md_demux_1", "locate", ("front",)),
+                ("md_demux_m", "locate", ("front",)),
+                ("md_pw_1", "myers", dense), ("md_pw_m", "myers", dense),
+                ("reorient", "locate", ("infix",)),
+                ("longsort", "myers", pairs),
+                ("plate", "locate", ("front",)),
+                ("plate", "locate", ("back",)),
+                ("plate", "locate", ("infix",))]
+        for section, kernel, keys in need:
+            got = d["launches"][section].get(kernel, {}).get("cuda:0", {})
+            assert any(got.get(k) for k in keys), (section, kernel, keys,
+                                                   d["launches"][section])
+        print(f"   bench: {d['wall_s']:.1f} s; launches per section "
+              f"{json.dumps(d['launches'])}", flush=True)
+
 
 #: worker of phase 14 (e): one process of two on localhost
 MULTIHOST_WORKER = r"""
@@ -2482,6 +2569,7 @@ def main(argv=None) -> int:
           [p14, p6])
     phase("14e two processes on localhost", s.mesh_processes, [p14])
     phase("15 locate and Myers kernels against both oracles", s.oracles)
+    phase("16 bench sections at full size", s.bench)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"chip_smoke: failed phases: {s.failed}", file=sys.stderr)
@@ -2490,6 +2578,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: phases {sorted(only)} ok (a check call: no "
               f"result line)")
         return 0
+    from tpu_orc_torch.bench import card_line
     print(json.dumps({"kernels": list(s.kernels.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
