@@ -44,6 +44,7 @@ import torch
 from .spec import Flag, FRONT, BACK, DEFAULT_MIN_OVERLAP
 
 from .. import _build
+from ..utils.profiling import count
 from .tables import LocateResult
 
 INFIX = Flag.START_WITHIN_SEQ2 | Flag.STOP_WITHIN_SEQ2
@@ -497,6 +498,9 @@ def _launch(impl: str, tables, reads_T: torch.Tensor, lens: torch.Tensor,
             out.data_ptr(), stream)
     _build.check(err, f"locate {impl} kernel ({mode})")
     LAUNCHES.add(mode if impl == "wf" else f"ks_{mode}", reads_T.device)
+    R = ref.shape[1]
+    count(f"locate.launches/{impl}/{mode}/L{L}/A{A}/R{R}")
+    count("locate.cells_launched", B * L * A * R)
     return out
 
 

@@ -55,6 +55,7 @@ from ..align.batched import (batched_locate, batched_locate_with_rc,
 from ..align.locate import (INFIX, _mode_of, locate_collect,
                             locate_dispatch, tables_for_bank)
 from ..align.tables import LocateResult
+from ..utils.profiling import count, span
 from .adapters import AdapterBank
 
 UNKNOWN = "unknown"
@@ -598,16 +599,20 @@ class _BinWriters:
 
     def write(self, path: str, recs: Sequence[Record]) -> None:
         from ..io.fastq import _open
-        fh = self._fh.get(path)
-        if fh is None:
-            os.makedirs(os.path.dirname(os.path.abspath(path)),
-                        exist_ok=True)
-            fh = self._fh[path] = _open(path, "wt")
-        if self.fmt == "fastq":
-            fh.write("".join(f"@{r.desc}\n{r.seq}\n+\n{r.qual or ''}\n"
-                             for r in recs))
-        else:
-            fh.write("".join(f">{r.desc}\n{r.seq}\n" for r in recs))
+        with span("demux.format"):
+            if self.fmt == "fastq":
+                text = "".join(f"@{r.desc}\n{r.seq}\n+\n{r.qual or ''}\n"
+                               for r in recs)
+            else:
+                text = "".join(f">{r.desc}\n{r.seq}\n" for r in recs)
+        with span("demux.gzip"):
+            fh = self._fh.get(path)
+            if fh is None:
+                os.makedirs(os.path.dirname(os.path.abspath(path)),
+                            exist_ok=True)
+                fh = self._fh[path] = _open(path, "wt")
+            fh.write(text)
+        count("demux.text_bytes", len(text))
 
     def close(self) -> None:
         for fh in self._fh.values():
@@ -650,73 +655,84 @@ def dual_round_demux_stream(record_iter, sp5: AdapterBank,
         os.makedirs(os.path.join(outdir, "SP27"), exist_ok=True)
 
     it = iter(record_iter)
+    n_chunk = 0
     try:
         while True:
             records = []
-            for r in it:
-                records.append(r)
-                if len(records) >= chunk_size:
-                    break
+            with span("demux.input", f"chunk {n_chunk}"):
+                for r in it:
+                    records.append(r)
+                    if len(records) >= chunk_size:
+                        break
             if not records:
                 break
+            n_chunk += 1
             total += len(records)
+            count("demux.chunks")
+            count("demux.reads", len(records))
             if mesh is not None and mesh.devices.size > 1:
-                dec = _decisions_sharded(records, sp5, sp27rc, mesh)
+                with span("demux.decide"):
+                    dec = _decisions_sharded(records, sp5, sp27rc, mesh)
             elif fused is not None:
-                # 2048-read chunks pipeline best: assign dispatches
-                # every chunk before fetching any, so host
-                # pack/materialize for chunk k overlaps device compute
-                # for k+1 (measured r3: 535 ms vs 1098 ms monolithic)
+                # assign dispatches up to 8 of its 2048-read batches
+                # before it fetches the first, so the host packs while
+                # the card computes (``fused.pipeline_depth`` counts the
+                # batches in flight at each fetch)
                 dec = [t[1:] for t in fused.assign(records,
                                                    batch_size=2048)]
             else:
-                dec = _decisions_unfused(records, sp5, sp27rc,
-                                         batch_size)
-            sp5_chunk: Dict[str, List[Record]] = defaultdict(list)
-            fin_chunk: Dict[str, List[Record]] = defaultdict(list)
-            for rec, row in zip(records, dec):
-                sp5_name, trimmed1, sp27_name, final = row[:4]
-                acc.add(rec, row)
-                r1_counts[sp5_name or UNKNOWN] += 1
-                if sp5_name is None:
-                    continue
-                sp5_chunk[sp5_name].append(trimmed1)
-                r2_counts[sp5_name][sp27_name or UNKNOWN] += 1
-                if sp27_name is None or sp27_name in INVALID_SP27:
-                    continue
-                fin_chunk[f"{sp27_name}_{sp5_name}"].append(final)
+                with span("demux.decide"):
+                    dec = _decisions_unfused(records, sp5, sp27rc,
+                                             batch_size)
+            with span("demux.tally"):
+                sp5_chunk: Dict[str, List[Record]] = defaultdict(list)
+                fin_chunk: Dict[str, List[Record]] = defaultdict(list)
+                for rec, row in zip(records, dec):
+                    sp5_name, trimmed1, sp27_name, final = row[:4]
+                    acc.add(rec, row)
+                    r1_counts[sp5_name or UNKNOWN] += 1
+                    if sp5_name is None:
+                        continue
+                    sp5_chunk[sp5_name].append(trimmed1)
+                    r2_counts[sp5_name][sp27_name or UNKNOWN] += 1
+                    if sp27_name is None or sp27_name in INVALID_SP27:
+                        continue
+                    fin_chunk[f"{sp27_name}_{sp5_name}"].append(final)
+                for comb, recs in fin_chunk.items():
+                    fin_counts[comb] += len(recs)
             if write:
-                for sp5_name, recs in sp5_chunk.items():
-                    writers.write(
-                        os.path.join(outdir, "SP5",
-                                     f"{sp5_name}_{dataset}{ext}"), recs)
-                for comb, recs in fin_chunk.items():
-                    fin_counts[comb] += len(recs)
-                    writers.write(
-                        os.path.join(outdir, "SP27",
-                                     f"{comb}_{dataset}{ext}"), recs)
-            else:
-                for comb, recs in fin_chunk.items():
-                    fin_counts[comb] += len(recs)
-    finally:
+                with span("demux.write"):
+                    for sp5_name, recs in sp5_chunk.items():
+                        writers.write(
+                            os.path.join(outdir, "SP5",
+                                         f"{sp5_name}_{dataset}{ext}"),
+                            recs)
+                    for comb, recs in fin_chunk.items():
+                        writers.write(
+                            os.path.join(outdir, "SP27",
+                                         f"{comb}_{dataset}{ext}"), recs)
+    except BaseException:
         writers.close()
+        raise
 
-    report = {
-        "dataset": dataset,
-        "total_reads": total,
-        "round1": dict(r1_counts),
-        "round2": {k: dict(v) for k, v in sorted(r2_counts.items())},
-    }
-    report["final_bins"] = {k: v for k, v in sorted(fin_counts.items())}
-    if write:
-        import json
-        with open(os.path.join(outdir, f"demux_{dataset}.json"),
-                  "w") as fh:
-            json.dump(report, fh, indent=2)
-        # real cutadapt-schema --json reports, one per round/bin
-        # (02_cutadapt_loop.sh:72,102)
-        acc.write(outdir, dataset, dataset, sp5, sp27rc,
-                  sp5.max_error_rate)
+    with span("demux.finish"):
+        writers.close()
+        report = {
+            "dataset": dataset,
+            "total_reads": total,
+            "round1": dict(r1_counts),
+            "round2": {k: dict(v) for k, v in sorted(r2_counts.items())},
+        }
+        report["final_bins"] = {k: v for k, v in sorted(fin_counts.items())}
+        if write:
+            import json
+            with open(os.path.join(outdir, f"demux_{dataset}.json"),
+                      "w") as fh:
+                json.dump(report, fh, indent=2)
+            # real cutadapt-schema --json reports, one per round/bin
+            # (02_cutadapt_loop.sh:72,102)
+            acc.write(outdir, dataset, dataset, sp5, sp27rc,
+                      sp5.max_error_rate)
     return report
 
 

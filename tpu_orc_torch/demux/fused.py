@@ -43,6 +43,7 @@ from ..io import encode
 from ..io.fastq import Record
 
 from ..align.locate import BankTables, locate_tiles
+from ..utils.profiling import count, span
 from .adapters import AdapterBank
 
 
@@ -222,75 +223,82 @@ class FusedDemux:
         vectorized: one ascii gather per chunk in, one vectorized
         materialization out."""
         from .demux import materialize_batch
-        recs = list(records)
-        out = []
-        # 2-bit packed upload is opt-in, as in tpu_orc (where it saved
-        # upload bytes but no wall time); decisions are the same either
-        # way.
-        packed = bool(os.environ.get("ORC_PACKED_UPLOAD"))
-        # Pipelined two-phase structure: chunks pack + DISPATCH ahead of
-        # the fetches through a bounded window (CUDA launches are
-        # asynchronous, the device queue runs ahead), so host
-        # materialization for chunk k overlaps device compute for chunks
-        # k+1... The window bounds in-flight uploads: a million-read
-        # file must not stage ~500 x 4 MB read matrices on device at
-        # once; 8 outstanding chunks keep the overlap.
-        from collections import deque
-        MAX_INFLIGHT = 8
-        pending = deque()
+        with span("fused.assign"):
+            recs = list(records)
+            out = []
+            # 2-bit packed upload is opt-in, as in tpu_orc (where it
+            # saved upload bytes but no wall time); decisions are the
+            # same either way.
+            packed = bool(os.environ.get("ORC_PACKED_UPLOAD"))
+            # Two phases: batches are packed and dispatched (CUDA
+            # launches are asynchronous) up to MAX_INFLIGHT ahead of
+            # their fetches, so the host packs later batches while the
+            # card computes earlier ones; ``fused.pipeline_depth`` counts
+            # the batches in flight at each fetch. The window bounds the
+            # read matrices staged on the device at once.
+            from collections import deque
+            MAX_INFLIGHT = 8
+            pending = deque()
 
-        def _drain_one():
-            s, chunk, lazy, B0, amat, lens = pending.popleft()
-            full = lazy.cpu().numpy()
-            d = FusedDecision(*(full[k, :B0] for k in range(8)))
-            mat = materialize_batch(chunk, self.sp5.names,
-                                    self.sp27.names, d.idx1, d.rc1,
-                                    d.qe1, d.idx2, d.rc2, d.qs2,
-                                    amat=amat, lens=lens)
-            for i, dec in enumerate(mat):
-                out.append((s + i,) + dec
-                           + (bool(d.rc1[i]) and int(d.idx1[i]) >= 0,
-                              int(d.err1[i]),
-                              bool(d.rc2[i]) and int(d.idx2[i]) >= 0,
-                              int(d.err2[i])))
+            def _drain_one():
+                count("fused.pipeline_depth", len(pending))
+                s, chunk, lazy, B0, amat, lens = pending.popleft()
+                with span("fused.fetch"):
+                    full = lazy.cpu().numpy()
+                with span("fused.materialize"):
+                    d = FusedDecision(*(full[k, :B0] for k in range(8)))
+                    mat = materialize_batch(chunk, self.sp5.names,
+                                            self.sp27.names, d.idx1, d.rc1,
+                                            d.qe1, d.idx2, d.rc2, d.qs2,
+                                            amat=amat, lens=lens)
+                    for i, dec in enumerate(mat):
+                        out.append((s + i,) + dec
+                                   + (bool(d.rc1[i]) and int(d.idx1[i]) >= 0,
+                                      int(d.err1[i]),
+                                      bool(d.rc2[i]) and int(d.idx2[i]) >= 0,
+                                      int(d.err2[i])))
 
-        for s in range(0, len(recs), batch_size):
-            chunk = recs[s:s + batch_size]
-            amat, lens = encode.ascii_matrix(
-                [r.seq for r in chunk],
-                max_len=_pick_len(max((len(r.seq) for r in chunk),
-                                      default=1), max_len))
-            if packed:
-                lazy = self._dispatch_packed(
-                    encode.codes_matrix(amat, lens), lens)
-            else:
-                lazy = self._dispatch(
-                    encode.read_masks_matrix(amat, lens), lens)
-            pending.append((s, chunk, lazy, len(chunk), amat, lens))
-            if len(pending) >= MAX_INFLIGHT:
+            for s in range(0, len(recs), batch_size):
+                chunk = recs[s:s + batch_size]
+                count("fused.batches")
+                with span("fused.pack"):
+                    amat, lens = encode.ascii_matrix(
+                        [r.seq for r in chunk],
+                        max_len=_pick_len(max((len(r.seq) for r in chunk),
+                                              default=1), max_len))
+                    wire = (encode.codes_matrix(amat, lens) if packed
+                            else encode.read_masks_matrix(amat, lens))
+                lazy = (self._dispatch_packed(wire, lens) if packed
+                        else self._dispatch(wire, lens))
+                pending.append((s, chunk, lazy, len(chunk), amat, lens))
+                if len(pending) >= MAX_INFLIGHT:
+                    _drain_one()
+            while pending:
                 _drain_one()
-        while pending:
-            _drain_one()
         return out
 
     def _dispatch(self, masks: np.ndarray, lens: np.ndarray):
         """Upload + launch the fused program; returns the [8, B] device
         tensor (no fetch)."""
-        return _fused_body(self._a5, self._a27,
-                           _put(masks, self.device, np.uint8),
-                           _put(lens, self.device, np.int32), self.t5.A,
-                           self.t27.A, self._locate)
+        with span("fused.launch"):
+            count("fused.h2d_bytes", masks.nbytes + 4 * len(lens))
+            return _fused_body(self._a5, self._a27,
+                               _put(masks, self.device, np.uint8),
+                               _put(lens, self.device, np.int32), self.t5.A,
+                               self.t27.A, self._locate)
 
     def _dispatch_packed(self, codes: np.ndarray, lens: np.ndarray):
         """Packed-upload variant of :meth:`_dispatch`: the 2-bit wire
         format up, the masks unpacked on the device."""
         L = codes.shape[1]
-        p2, oth = encode.pack_codes_2bit(codes, lens)
-        masks = _unpack_to_masks(_put(p2, self.device),
-                                 _put(oth, self.device), L)
-        return _fused_body(self._a5, self._a27, masks,
-                           _put(lens, self.device, np.int32), self.t5.A,
-                           self.t27.A, self._locate)
+        with span("fused.launch"):
+            p2, oth = encode.pack_codes_2bit(codes, lens)
+            count("fused.h2d_bytes", p2.nbytes + oth.nbytes + 4 * len(lens))
+            masks = _unpack_to_masks(_put(p2, self.device),
+                                     _put(oth, self.device), L)
+            return _fused_body(self._a5, self._a27, masks,
+                               _put(lens, self.device, np.int32), self.t5.A,
+                               self.t27.A, self._locate)
 
 
 def _put(x, dev, dtype=None) -> torch.Tensor:
