@@ -8,8 +8,9 @@ directory as it does in tpu_orc. ``run_all`` with a trace directory
 writes a trace, ``spans.json`` and the same files as without one
 (timings aside). Spans and counters record nothing outside
 ``recording()``; inside it, stage 02's stream and the fused demux (its
-plain locate on the CPU) record every span with its parent, and write
-what an unrecorded run writes.
+plain locate on the CPU) record every span with its parent (stage 02's
+bin writer threads their own), and write what an unrecorded run
+writes.
 """
 import gzip
 import json
@@ -24,6 +25,7 @@ import torch
 
 from tpu_orc.io.fastq import write_records
 from tpu_orc_torch import synthetic
+from tpu_orc_torch.demux import demux as port_demux
 from tpu_orc_torch.demux import fused as port_fused
 from tpu_orc_torch.demux.adapters import AdapterBank
 from tpu_orc_torch.demux.demux import dual_round_demux_stream
@@ -82,10 +84,13 @@ def traced_run_all(tmp_path_factory):
     fq = str(tmp_path / "plate.fastq")
     write_records(fq, recs, fmt="fastq")
     cfg = port_stages.PipelineConfig(adapters, device="cpu", bin_workers=1)
-    plain = port_stages.run_all(fq, str(tmp_path / "plain"), "plate", "COI",
-                                cfg)
-    traced = port_stages.run_all(fq, str(tmp_path / "traced"), "plate",
-                                 "COI", cfg, trace_dir=str(tmp_path / "tr"))
+    with pytest.MonkeyPatch.context() as mp:   # three bin writer threads
+        mp.setattr(port_demux, "_usable_cpus", lambda: 4)
+        plain = port_stages.run_all(fq, str(tmp_path / "plain"), "plate",
+                                    "COI", cfg)
+        traced = port_stages.run_all(fq, str(tmp_path / "traced"), "plate",
+                                     "COI", cfg,
+                                     trace_dir=str(tmp_path / "tr"))
     found = _traces(tmp_path / "tr")
     assert len(found) == 1
     with gzip.open(found[0], "rt") as fh:
@@ -107,9 +112,10 @@ def test_run_all_trace_dir_writes_trace_and_same_files(traced_run_all):
 
 def test_run_all_trace_dir_writes_spans(traced_run_all):
     """``spans.json`` beside the trace: the stages as ``stage.<name>``
-    spans, stage 02's spans under ``stage.02_demux``, the reads counted;
-    each span an annotation of the trace; ``metrics.json`` keeps its
-    keys."""
+    spans, stage 02's spans under ``stage.02_demux``, ``demux.gzip`` at
+    the top of the bin writer threads, the reads counted; each span of
+    the profiling thread an annotation of the trace (the profiler
+    records no other thread's); ``metrics.json`` keeps its keys."""
     tmp_path, plain, _, events = traced_run_all
     with open(tmp_path / "tr" / "spans.json") as fh:
         got = json.load(fh)
@@ -118,7 +124,13 @@ def test_run_all_trace_dir_writes_spans(traced_run_all):
     for name in ("demux.input", "demux.decide", "demux.tally",
                  "demux.write", "demux.finish"):
         assert spans[name]["parent"] == "stage.02_demux", name
-    assert spans["demux.gzip"]["parent"] == "demux.write"
+    for name in ("demux.format", "demux.write_wait"):
+        assert spans[name]["parent"] == "demux.write", name
+    assert spans["demux.drain"]["parent"] == "demux.finish"
+    assert spans["demux.gzip"]["parent"] is None
+    assert spans["demux.gzip"]["n"] == spans["demux.format"]["n"] > 0
+    assert (counters["demux.write_offloaded_bytes"]
+            == counters["demux.text_bytes"] > 0)
     with open(tmp_path / "traced" / "metrics.json") as fh:
         traced_m = json.load(fh)
     demux_m = next(m for m in traced_m["stages"]
@@ -127,7 +139,8 @@ def test_run_all_trace_dir_writes_spans(traced_run_all):
     annotated = {e["name"] for e in events
                  if e.get("cat") == "user_annotation"}
     assert {"stage.00_qc", "stage.02_demux", "demux.tally",
-            "demux.gzip"} <= annotated
+            "demux.format", "demux.write_wait"} <= annotated
+    assert "demux.gzip" not in annotated
     with open(tmp_path / "plain" / "metrics.json") as fh:
         plain_m = json.load(fh)
     assert ([sorted(m) for m in traced_m["stages"]]
@@ -226,11 +239,14 @@ def banks(tmp_path_factory):
             AdapterBank.from_fasta(f(1), 0.1, "cpu"))
 
 
-def test_demux_stream_spans_under_recording(banks, tmp_path):
-    """Stage 02's stream on the CPU (the unfused path) under
-    ``recording()``: each stream-level span with its parent, the reads
-    and chunks counted, and the files of an unrecorded run."""
+def test_demux_stream_spans_under_recording(banks, tmp_path, monkeypatch):
+    """Stage 02's stream on the CPU (the unfused path), with three bin
+    writer threads, under ``recording()``: each stream-level span with
+    its parent, ``demux.gzip`` at the top of the writer threads, the
+    reads, chunks and writes counted, and the files of an unrecorded
+    run."""
     sp5, sp27 = banks
+    monkeypatch.setattr(port_demux, "_usable_cpus", lambda: 4)
     recs, _ = synthetic.make_plate(2, n5=3, n27=3, seed=3, insert_len=200)
     plain = dual_round_demux_stream(iter(recs), sp5, sp27, "p",
                                     str(tmp_path / "plain"), chunk_size=7)
@@ -248,11 +264,15 @@ def test_demux_stream_spans_under_recording(banks, tmp_path):
                             ("demux.tally", "stage.02_demux", chunks),
                             ("demux.write", "stage.02_demux", chunks),
                             ("demux.format", "demux.write", None),
-                            ("demux.gzip", "demux.write", None),
-                            ("demux.finish", "stage.02_demux", 1)):
+                            ("demux.write_wait", "demux.write", chunks),
+                            ("demux.gzip", None, None),
+                            ("demux.finish", "stage.02_demux", 1),
+                            ("demux.drain", "demux.finish", 1)):
         assert s[name]["parent"] == parent, name
         assert n is None or s[name]["n"] == n, name
     assert s["demux.format"]["n"] == s["demux.gzip"]["n"] >= chunks
+    assert c["demux.write_jobs"] == s["demux.format"]["n"]
+    assert c["demux.write_backlog"] >= c["demux.write_jobs"]
     assert c["demux.reads"] == plain["total_reads"] == len(recs)
     assert c["demux.chunks"] == chunks
     written = 0
@@ -262,6 +282,7 @@ def test_demux_stream_spans_under_recording(banks, tmp_path):
                 with gzip.open(os.path.join(d, f), "rb") as fh:
                     written += len(fh.read())
     assert c["demux.text_bytes"] == written
+    assert c["demux.write_offloaded_bytes"] == written
     assert not any(k.startswith(("fused.", "locate.")) for k in (*s, *c))
 
 
