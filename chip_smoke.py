@@ -139,7 +139,16 @@ Phases:
      checks: each demux read in its bin, 64 tile entries equal to the
      C++ oracle, 2 species in each sort, 96 bins and 96 species groups on
      the plate), the device this card, and each section's kernels
-     launched.
+     launched;
+17. the KS locate kernel in INFIX mode with the pychopper primer bank
+     (SP5, -SP5, SP27, -SP27, 59 bp, N17 each, the custom budget
+     floor((1 - q) len)) at stage 01's long-read shapes: 2,048 rRNA reads
+     at L 4,096 and 2,048 reads at L 8,192, half of them two rRNA reads
+     fused (the second reverse-complemented in every other), every 64th
+     with a primer's
+     span masked by X as the fused-read re-scan masks it, some empty; at
+     q 0.90 and 0.70; all 8 outputs, nloc and nacc included, equal to
+     locate_plain_ks; kernel and plain version timed.
 Phase 1 prints each kernel source's ptxas report (registers, stack
 frame). Prints a JSON line of per-kernel numbers, the card line, and last
 the result line. Exits non-zero, printing no result, when any phase fails or
@@ -1001,6 +1010,78 @@ class Smoke:
             print(f"   KS locate back, min_overlap 0, {label}: equal to plain"
                   f" in both designs; differs from the wavefront kernel on "
                   f"exactly the {len(empty)} empty reads")
+
+    # -- phase 17 --------------------------------------------------------
+    def long_reads(self):
+        """{L: (masks, lens)} of stage 01's long-read scan batches: at L
+        4,096 the rRNA plate's reads; at L 8,192 half of them two rRNA
+        reads fused, the second reverse-complemented in every other one
+        (a fused read of one orientation holds each primer twice, so its
+        nloc is 2); every 64th read
+        with a 59-base span masked by X, every 97th empty."""
+        from tpu_orc_torch import synthetic
+        from tpu_orc_torch.io import encode
+        _, recs, _ = self.rrna_plate()
+        seqs = [r.seq for r in recs[:2048]]
+        other = lambda k: seqs[(k + 7) % 2048]
+        fused = [s if k % 2 else s + (other(k) if k % 4 == 0
+                                      else encode.revcomp(other(k)))
+                 for k, s in enumerate(seqs)]
+        out = {}
+        for L, batch in ((4096, seqs), (8192, fused)):
+            batch = [s[:1000] + "X" * 59 + s[1059:] if k % 64 == 0 else s
+                     for k, s in enumerate(batch)]
+            masks, lens = synthetic.read_masks(batch, L)
+            lens[::97] = 0
+            out[L] = masks, lens
+        return out
+
+    def locate_ks_long(self):
+        """The KS kernel in INFIX mode with the pychopper bank at L 4,096
+        and 8,192 against locate_plain_ks, all 8 outputs, at q 0.90 and
+        0.70; each timed."""
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch.align import locate as L
+        from tpu_orc_torch.demux.reorient import build_primer_bank
+        for Lc, (masks, lens) in self.long_reads().items():
+            rt = torch.from_numpy(np.ascontiguousarray(masks.T)).cuda()
+            ln = torch.from_numpy(lens).cuda()
+            for q in (0.9, 0.7):
+                bank = build_primer_bank(os.path.join(
+                    self.adapters, "M13_seqs_for_pychopper.fa"), q,
+                    "cuda")[0]
+                tabs = L.tables_for_bank(bank, "infix", 3).tensors("cuda")
+                A = len(bank)
+                got = L.locate_cuda_ks(tabs, rt, ln, "infix", A)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = L.locate_plain_ks(tabs, rt, ln, "infix", A)
+                torch.cuda.synchronize()
+                pms = (time.perf_counter() - t0) * 1e3
+                if not torch.equal(got, want):
+                    bad = [k for k in range(8)
+                           if not torch.equal(got[k], want[k])]
+                    raise AssertionError(f"KS INFIX at L {Lc}, q {q}: "
+                                         f"outputs {bad} differ")
+                ms = cuda_ms(lambda: L.locate_cuda_ks(tabs, rt, ln, "infix",
+                                                      A))
+                multi = int((got[6] > 1).any(0).sum())
+                print(f"   KS locate infix, pychopper bank (A {A}, k "
+                      f"{int(bank.k_table[0, 0])}), 2,048 reads x L {Lc}, "
+                      f"{int((ln == 0).sum())} empty: {int(got[4].sum())} "
+                      f"valid hits, {multi} reads with nloc > 1, max nacc "
+                      f"{int(got[7].max())}; equal to plain in all 8 "
+                      f"outputs; kernel {ms:.3f} ms, plain {pms:.3f} ms "
+                      f"(one call)", flush=True)
+                if q == 0.9:
+                    cells = float(ln.sum()) * float(tabs[4][:A].sum())
+                    self.record(f"locate_ks_infix_pychopper_L{Lc}",
+                                "tpu_orc_torch/csrc/locate.cu",
+                                "tpu_orc/align/pallas_locate.py:55",
+                                max_abs_err(got, want), ms, pms,
+                                nbytes(*tabs, rt, ln, got),
+                                OPS_PER_CELL["locate"] * cells)
 
     # -- phase 9 ---------------------------------------------------------
     def viterbi(self):
@@ -2570,6 +2651,8 @@ def main(argv=None) -> int:
     phase("14e two processes on localhost", s.mesh_processes, [p14])
     phase("15 locate and Myers kernels against both oracles", s.oracles)
     phase("16 bench sections at full size", s.bench)
+    phase("17 KS INFIX locate, pychopper bank, at L 4,096 and 8,192",
+          s.locate_ks_long)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"chip_smoke: failed phases: {s.failed}", file=sys.stderr)

@@ -119,6 +119,43 @@ def test_locate_ks_kernel_equals_plain(cuda, mode):
         assert torch.equal(got, want), (max_ref, mo)
 
 
+
+@pytest.mark.parametrize("L_cols", [4096, 8192])
+def test_locate_ks_infix_pychopper_long_reads(cuda, tmp_path, L_cols):
+    """Stage 01's scan: the KS kernel in INFIX mode with the pychopper
+    bank (four 59 bp primers with N17, the budget floor((1 - q) len)) at
+    L 4,096 and 8,192, reads fused in both orientations, a span masked
+    by X, empty reads: all 8 outputs, nloc and nacc included, equal
+    locate_plain_ks, at a strict and a lenient q."""
+    from tpu_orc_torch.demux.reorient import build_primer_bank
+    d = synthetic.write_adapter_dir(str(tmp_path / "ad"))
+    b = synthetic.banks(5)
+    rnd = random.Random(L_cols)
+    unit = lambda k: (b["sp5"][k % 12][1]
+                      + "".join(rnd.choice("ACGT")
+                                for _ in range(L_cols // 2 - 200))
+                      + b["sp27rc"][k % 8][1])
+    reads = []
+    for k in range(48):
+        s = unit(k) + (unit(k + 1) if k % 3 == 0 else
+                       encode.revcomp(unit(k + 1)) if k % 3 == 1 else "")
+        if k % 5 == 0:
+            s = s[:30] + "X" * 59 + s[89:]
+        reads.append(s[:L_cols])
+    masks, lens = synthetic.read_masks(reads, L_cols)
+    lens[::11] = 0
+    rt = torch.from_numpy(np.ascontiguousarray(masks.T)).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
+    for q in (0.9, 0.7):
+        bank = build_primer_bank(os.path.join(d, synthetic.FILES[2]), q,
+                                 "cuda")[0]
+        tt = L.tables_for_bank(bank, "infix", 3).tensors(cuda)
+        got = L.locate_tiles(tt, rt, ln, "infix", 4, impl="ks")
+        want = L.locate_plain_ks(tt, rt, ln, "infix", 4)
+        torch.cuda.synchronize()
+        assert int(want[4].sum()) > 48 and int(want[6].max()) > 1
+        assert torch.equal(got, want), q
+
 def test_locate_ks_kernel_equals_wf_kernel(cuda):
     """The two kernels agree in every mode at min_overlap 3; at 0 they
     differ only in BACK, on the empty reads (the two Pallas kernels'

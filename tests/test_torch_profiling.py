@@ -147,6 +147,28 @@ def test_run_all_trace_dir_writes_spans(traced_run_all):
             == [sorted(m) for m in plain_m["stages"]])
 
 
+
+def test_run_all_trace_dir_writes_reorient_spans(traced_run_all):
+    """Stage 01's spans and counters in ``spans.json``: the stream's under
+    ``stage.01_reorient``, ``Reorienter.run``'s under ``reorient.block``,
+    every raw read and the tuned q counted as the report has them."""
+    tmp_path, plain, _, _ = traced_run_all
+    with open(tmp_path / "tr" / "spans.json") as fh:
+        got = json.load(fh)
+    spans, counters = got["spans"], got["counters"]
+    for name in ("reorient.input", "reorient.block", "reorient.write",
+                 "reorient.finish"):
+        assert spans[name]["parent"] == "stage.01_reorient", name
+    for name in ("reorient.qfilter", "reorient.autotune", "reorient.scan",
+                 "reorient.fetch", "reorient.classify", "reorient.enumerate",
+                 "reorient.schedule", "reorient.segment"):
+        assert spans[name]["parent"] == "reorient.block", name
+    assert counters["reorient.blocks"] == spans["reorient.block"]["n"] == 1
+    assert counters["reorient.reads"] == plain["qc"]["reads"] > 0
+    assert counters["reorient.q_x100"] == \
+        plain["reorient"]["autotuned_q_x100"]
+    assert counters["reorient.fused"] == plain["reorient"]["fused_reads"]
+
 def test_spans_and_counters_off_outside_recording(tmp_path):
     """Outside ``recording()``: the shared null context, nothing kept,
     and no annotation in a profiler trace."""

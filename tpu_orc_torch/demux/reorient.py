@@ -27,8 +27,10 @@ rule (VERDICT r2 #6; each rule's provenance noted):
    given, pychopper tunes it on a read subsample, picking the cutoff
    that maximizes the classified fraction. We scan q in
    {0.95, 0.90, ..., 0.55} over ``autotune_sample`` reads and keep the
-   best (ties -> stricter/higher q). 01_pychopper.sh passes no -q, so
-   autotune is the production path.
+   knee of the classified counts (:func:`autotune_knee`: the strictest
+   q where loosening one step gains under 5%, among the cutoffs that
+   classify at least half the grid's most). 01_pychopper.sh passes no
+   -q, so autotune is the production path.
 4. **Orientation configs** (`-c`, M13_config_for_pychopper.txt:1):
    ``+:SP5,-SP27|-:SP27,-SP5`` — a '+' segment starts with an SP5 hit
    and ends with a revcomp-SP27 hit; a '-' segment the mirror image and
@@ -72,22 +74,28 @@ rule (VERDICT r2 #6; each rule's provenance noted):
    work (the r4 scan re-dispatched every fast-path read).
 
 Known deviations (documented, not hidden): autotune grid/sample sizes
-are ours; pychopper's exact grid is an implementation detail of its
-tuner.
+and the knee are ours; pychopper's exact grid is an implementation
+detail of its tuner. The knee differs from ``tpu_orc``'s (the strictest
+q within 5% of the grid's most): where 5% or more of the sampled reads
+have no primer pair, they classify on spurious hits from q 0.75 down,
+the grid's most sits that far above the sensitivity plateau, and
+``tpu_orc``'s rule lands on either side of it by a read or two.
 
 Primer hits are scored on device with the locate kernel in INFIX mode.
 """
 from __future__ import annotations
 
+import itertools
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..align.spec import Flag
 from ..io import encode
-from ..io.fastq import Record, write_records
+from ..io.fastq import Record
+from ..utils.profiling import count, span
 
 from .adapters import AdapterBank
 from .demux import locate_batch
@@ -125,6 +133,22 @@ class ReorientConfig:
 
 AUTOTUNE_GRID = tuple(round(0.95 - 0.05 * k, 2) for k in range(9))
 # (0.95, 0.90, ..., 0.55)
+
+
+def autotune_knee(counts: Sequence[int]) -> float:
+    """The cutoff of ``AUTOTUNE_GRID`` where the classified ``counts``
+    (one per cutoff, strictest first) reach their plateau: the strictest
+    q from which loosening one step gains under 5%, among the cutoffs
+    that classify at least half the grid's most (so that a run of
+    strict cutoffs classifying nothing is no plateau). Junk reads that
+    classify on spurious hits at loose cutoffs raise the grid's most,
+    not the plateau, so they cannot move the knee."""
+    mx = max(counts)
+    for k, (q, n) in enumerate(zip(AUTOTUNE_GRID, counts)):
+        nxt = counts[k + 1] if k + 1 < len(counts) else n
+        if 2 * n >= mx and n >= 0.95 * nxt:
+            return q
+    return AUTOTUNE_GRID[-1]
 
 
 @dataclass
@@ -194,17 +218,17 @@ class Reorienter:
     def autotune(self, records: Sequence[Record]) -> float:
         """Spec rule 3 tuner: classify the subsample at EVERY grid
         cutoff (one device scan per q, like pychopper's tuner re-running
-        classification per candidate cutoff) and pick the STRICTEST q
-        whose classified count is within 5% of the grid maximum —
-        classified count grows monotonically as q loosens (junk reads
-        eventually "classify"), so a bare argmax would always return
-        the loosest cutoff; the knee rule prefers specificity once
-        sensitivity plateaus. (Per-q scans matter: a single lenient
-        scan re-thresholded on host keeps only the max-MATCHES hit per
-        primer, whose error count can exceed a stricter budget that a
-        different location would meet, systematically under-tuning q —
-        which then floods the rule-8 scheduler with spurious lenient
-        hits. The 5% knee rule remains ours and is documented as such.)
+        classification per candidate cutoff) and pick the knee of the
+        counts (:func:`autotune_knee`) — classified count grows as q
+        loosens (junk reads eventually "classify"), so a bare argmax
+        would always return the loosest cutoff; the knee rule prefers
+        specificity once sensitivity plateaus. (Per-q scans matter: a
+        single lenient scan re-thresholded on host keeps only the
+        max-MATCHES hit per primer, whose error count can exceed a
+        stricter budget that a different location would meet,
+        systematically under-tuning q — which then floods the rule-8
+        scheduler with spurious lenient hits. The knee rule remains
+        ours and is documented as such.)
         """
         sample = [r.seq.upper() for r in
                   list(records)[:self.cfg.autotune_sample]]
@@ -224,11 +248,7 @@ class Reorienter:
                     locate_batch_collect(handle)._asdict().items()}
             cfg_idx, _, _, _, _ = self._classify_batch(hits)
             counts.append(int((cfg_idx >= 0).sum()))
-        mx = max(counts)
-        for q, n in zip(AUTOTUNE_GRID, counts):  # strictest first
-            if n >= 0.95 * mx:
-                return q
-        return AUTOTUNE_GRID[-1]
+        return autotune_knee(counts)
 
     def _locate_all(self, seqs: Sequence[str], q: Optional[float] = None):
         """Best infix hit of every primer/strand in every sequence."""
@@ -329,6 +349,8 @@ class Reorienter:
             if not active:
                 break
             order = sorted(active)
+            count("reorient.enum_rounds")
+            count("reorient.enum_reads", len(order))
             nxt: Dict[int, str] = {}
             # dispatch every chunk of the round before collecting any:
             # rounds are sequentially dependent, but chunks within a
@@ -448,29 +470,40 @@ class Reorienter:
     # ------------------------------------------------------------------
     def run(self, records: Sequence[Record], batch_size: int = 2048
             ) -> ReorientResult:
+        """Reorient one block of reads: the mean-Q filter (rule 6), q
+        tuned on the block's first kept reads while it is unknown (rule
+        3), one pipelined INFIX scan of every kept read, completeness by
+        the kernel's multiplicity outputs, enumeration and scheduling
+        where it is not proven (rule 8), then the segments and their
+        routes (rule 7)."""
         cfg = self.cfg
         out = ReorientResult()
         stats = {"total": 0, "pass": 0, "rescued_segments": 0,
                  "fused_reads": 0, "unclass": 0, "short": 0, "low_q": 0,
                  "scheduled_reads": 0}
         records = list(records)
+        count("reorient.reads", len(records))
         # spec rule 6: mean-Q filter before classification (one
         # segmented reduction over the whole batch; mean_q_batch)
         from ..io.fastq import mean_q_batch
-        meanq = mean_q_batch([r.qual for r in records])
-        kept: List[Record] = []
-        for i, r in enumerate(records):
-            stats["total"] += 1
-            if r.qual is not None and meanq[i] < cfg.qmin:
-                stats["low_q"] += 1
-                stats["unclass"] += 1
-                out.unclass.append(r)
-            else:
-                kept.append(r)
+        with span("reorient.qfilter"):
+            meanq = mean_q_batch([r.qual for r in records])
+            kept: List[Record] = []
+            for i, r in enumerate(records):
+                stats["total"] += 1
+                if r.qual is not None and meanq[i] < cfg.qmin:
+                    stats["low_q"] += 1
+                    stats["unclass"] += 1
+                    out.unclass.append(r)
+                else:
+                    kept.append(r)
+        count("reorient.low_q", stats["low_q"])
         # spec rule 3: tune q on a subsample when not given
         if self.q is None:
-            self.q = self.autotune(kept)
+            with span("reorient.autotune"):
+                self.q = self.autotune(kept)
             stats["autotuned_q_x100"] = int(round(self.q * 100))
+            count("reorient.q_x100", stats["autotuned_q_x100"])
         from .demux import locate_batch_collect, locate_batch_lazy
         bank, _ = self._bank_for(self.q)
         # per-primer completeness caps (spec rule 8 / nloc docstring):
@@ -503,165 +536,186 @@ class Reorienter:
 
         def _drain_one():
             wchunk, handle = pend.popleft()
-            hits = {k: np.asarray(v) for k, v in
-                    locate_batch_collect(handle)._asdict().items()}
-            cfg_idx, cs0, cs1, _, ncfg = self._classify_batch(hits)
-            anyhit = (hits["valid"] != 0).any(axis=1)
-            classified = cfg_idx >= 0
-            # kernel-side multiplicity evidence: the best-hit set is
-            # complete iff every primer's acceptable end columns form
-            # at most one run no wider than len - k (module docstring
-            # rule 8). Incomplete reads (fused reads whose interior
-            # primers were shadowed by best-hit selection) go to full
-            # enumeration; complete reads never need a re-scan.
-            bad = (hits["nloc"] > 1) | ((hits["nloc"] == 1)
-                                        & (hits["nacc"] > width_cap))
-            complete = ~bad.any(axis=1)
-            if self.FORCE_SCHEDULE:
-                complete = np.zeros_like(complete)
-            for b in np.nonzero(anyhit)[0]:
-                ci, seq, qual = wchunk[b]
-                if not complete[b]:
-                    slow[ci] = (seq, self._hits_from_row(hits, b))
-                elif classified[b] and ncfg[b] == 1:
-                    fast_cand[ci] = (int(cfg_idx[b]), int(cs0[b]),
-                                     int(cs1[b]))
-                elif ncfg[b] > 1:
-                    sched_direct[ci] = self._hits_from_row(hits, b)
-                # else: hits, but no config pairs even on the complete
-                # set -> unclassified (scheduler would find nothing)
+            with span("reorient.fetch"):
+                hits = {k: np.asarray(v) for k, v in
+                        locate_batch_collect(handle)._asdict().items()}
+            with span("reorient.classify"):
+                cfg_idx, cs0, cs1, _, ncfg = self._classify_batch(hits)
+                anyhit = (hits["valid"] != 0).any(axis=1)
+                classified = cfg_idx >= 0
+                # kernel-side multiplicity evidence: the best-hit set is
+                # complete iff every primer's acceptable end columns form
+                # at most one run no wider than len - k (module docstring
+                # rule 8). Incomplete reads (fused reads whose interior
+                # primers were shadowed by best-hit selection) go to full
+                # enumeration; complete reads never need a re-scan.
+                bad = (hits["nloc"] > 1) | ((hits["nloc"] == 1)
+                                            & (hits["nacc"] > width_cap))
+                complete = ~bad.any(axis=1)
+                if self.FORCE_SCHEDULE:
+                    complete = np.zeros_like(complete)
+                for b in np.nonzero(anyhit)[0]:
+                    ci, seq, qual = wchunk[b]
+                    if not complete[b]:
+                        slow[ci] = (seq, self._hits_from_row(hits, b))
+                    elif classified[b] and ncfg[b] == 1:
+                        fast_cand[ci] = (int(cfg_idx[b]), int(cs0[b]),
+                                         int(cs1[b]))
+                    elif ncfg[b] > 1:
+                        sched_direct[ci] = self._hits_from_row(hits, b)
+                    # else: hits, but no config pairs even on the complete
+                    # set -> unclassified (scheduler would find nothing)
+                count("reorient.unpaired",
+                      int((anyhit & complete & (ncfg == 0)).sum()))
 
         for start in range(0, len(work), batch_size):
             wchunk = work[start:start + batch_size]
-            pend.append((wchunk, locate_batch_lazy(
-                bank, [w[1] for w in wchunk], INFIX,
-                cfg.min_primer_overlap)))
+            with span("reorient.scan"):
+                handle = locate_batch_lazy(
+                    bank, [w[1] for w in wchunk], INFIX,
+                    cfg.min_primer_overlap)
+            pend.append((wchunk, handle))
             if len(pend) >= MAX_INFLIGHT:
                 _drain_one()
         while pend:
             _drain_one()
+        count("reorient.fast", len(fast_cand))
+        count("reorient.sched_direct", len(sched_direct))
+        count("reorient.slow", len(slow))
 
-        # emit the verified fast-path segments
-        for ci, (k, s0, s1) in fast_cand.items():
-            segments[ci].append(self._make_segment(
-                kept[ci], kept[ci].seq.upper(), kept[ci].qual,
-                k, s0, s1, 0))
-
-        # complete hit sets that need scheduling: no enumeration —
-        # completeness means the seeds ARE all acceptable locations
-        for ci, seeds in sched_direct.items():
-            for seg_no, (k, s0, s1) in enumerate(self._schedule(seeds)):
-                segments[ci].append(self._make_segment(
-                    kept[ci], kept[ci].seq.upper(), kept[ci].qual,
-                    k, s0, s1, seg_no))
-
-        # slow path: enumerate all hit locations, schedule segments
+        # slow path: enumerate all hit locations (spec rule 8)
         stats["scheduled_reads"] = len(slow) + len(sched_direct)
-        if slow:
+        with span("reorient.enumerate"):
             # small fixed chunks: the slow set's size varies run to run,
             # and each distinct padded batch shape is a device-program
             # compile — 256 keeps every slow-path scan on one shape
             # (the same one the warmup paths compile)
-            all_hits = self._enumerate_hits(slow, bank,
-                                            min(batch_size, 256))
-            for ci, (seq, _) in slow.items():
-                qual = kept[ci].qual
-                for seg_no, (k, s0, s1) in enumerate(
-                        self._schedule(all_hits[ci])):
-                    segments[ci].append(self._make_segment(
-                        kept[ci], seq, qual, k, s0, s1, seg_no))
+            all_hits = (self._enumerate_hits(slow, bank,
+                                             min(batch_size, 256))
+                        if slow else {})
+        # complete hit sets that need scheduling take their seeds: no
+        # enumeration — completeness means the seeds ARE all acceptable
+        # locations
+        with span("reorient.schedule"):
+            plans = {ci: self._schedule(seeds)
+                     for ci, seeds in sched_direct.items()}
+            plans.update((ci, self._schedule(all_hits[ci])) for ci in slow)
 
-        # route per read (spec rule 7): one valid segment -> pass;
-        # fused (2+) -> ALL segments to rescued; none -> unclass;
-        # under-length segments -> short either way
-        for ci, rec in enumerate(kept):
-            segs = segments[ci]
-            if not segs:
-                stats["unclass"] += 1
-                out.unclass.append(rec)
-                continue
-            long_enough = [s for s in segs if len(s.seq) >= cfg.min_len]
-            for s in segs:
-                if len(s.seq) < cfg.min_len:
-                    stats["short"] += 1
-                    out.short.append(s)
-            if len(segs) == 1:
-                if long_enough:
-                    stats["pass"] += 1
-                    out.passed.append(long_enough[0])
-            else:
-                stats["fused_reads"] += 1
-                for s in long_enough:
-                    stats["rescued_segments"] += 1
-                    out.rescued.append(s)
+        with span("reorient.segment"):
+            # the verified fast-path segments, then the scheduled ones
+            for ci, (k, s0, s1) in fast_cand.items():
+                segments[ci].append(self._make_segment(
+                    kept[ci], work[ci][1], kept[ci].qual, k, s0, s1, 0))
+            for ci, plan in plans.items():
+                for seg_no, (k, s0, s1) in enumerate(plan):
+                    segments[ci].append(self._make_segment(
+                        kept[ci], work[ci][1], kept[ci].qual, k, s0, s1,
+                        seg_no))
+
+            # route per read (spec rule 7): one valid segment -> pass;
+            # fused (2+) -> ALL segments to rescued; none -> unclass;
+            # under-length segments -> short either way
+            for ci, rec in enumerate(kept):
+                segs = segments[ci]
+                if not segs:
+                    stats["unclass"] += 1
+                    out.unclass.append(rec)
+                    continue
+                long_enough = [s for s in segs if len(s.seq) >= cfg.min_len]
+                for s in segs:
+                    if len(s.seq) < cfg.min_len:
+                        stats["short"] += 1
+                        out.short.append(s)
+                if len(segs) == 1:
+                    if long_enough:
+                        stats["pass"] += 1
+                        out.passed.append(long_enough[0])
+                else:
+                    stats["fused_reads"] += 1
+                    for s in long_enough:
+                        stats["rescued_segments"] += 1
+                        out.rescued.append(s)
+        count("reorient.fused", stats["fused_reads"])
+        count("reorient.segments",
+              len(out.passed) + len(out.rescued) + len(out.short))
         out.stats = stats
         return out
+
+
+#: the four output files of stage 01, in the order they are written
+OUTPUTS = ("pass", "rescued", "unclass", "short")
+
+
+def reorient_stream(records: Iterable[Record], primer_fasta: str,
+                    config_text: str, outdir: str, name: str,
+                    cfg: ReorientConfig = ReorientConfig(),
+                    stream_block: int = 65536) -> ReorientResult:
+    """Stage 01 over any iterable of reads, in 01_pychopper.sh's output
+    layout: ``<name>_{pass,rescued,unclass,short}.fastq`` and
+    ``<name>_stats.out`` in ``outdir``.
+
+    Takes the reads ``stream_block`` at a time and writes each block's
+    records as soon as it is done, so host memory is O(block), not
+    O(input) (the reference pipes through pychopper; a flowcell FASTQ
+    must not materialize as Python records — VERDICT r4 missing#4). The
+    q cutoff autotunes once, on the first block's subsample, then stays
+    fixed (pychopper's tuner also samples the head of the file). The
+    returned ReorientResult carries full record lists only when the
+    input fits one block; multi-block runs return stats alone (the
+    pipeline consumes the written files, not the lists).
+    """
+    from ..io.fastq import _open
+    r = Reorienter(primer_fasta, config_text, cfg)
+    os.makedirs(outdir, exist_ok=True)
+    handles = {k: _open(os.path.join(outdir, f"{name}_{k}.fastq"), "wt")
+               for k in OUTPUTS}
+    stats: Dict[str, int] = {}
+    nblocks = 0
+    it = iter(records)
+    try:
+        while True:
+            with span("reorient.input"):
+                block = list(itertools.islice(it, stream_block))
+            with span("reorient.block"):
+                res = r.run(block)
+            nblocks += 1
+            count("reorient.blocks")
+            for k, v in res.stats.items():
+                stats[k] = stats.get(k, 0) + v
+            with span("reorient.write"):
+                for k, recs in zip(OUTPUTS, (res.passed, res.rescued,
+                                             res.unclass, res.short)):
+                    text = "".join(f"@{x.desc}\n{x.seq}\n+\n{x.qual or ''}\n"
+                                   for x in recs)
+                    handles[k].write(text)
+                    count("reorient.out_bytes", len(text))
+            # a short block is the last: the input has ended
+            if len(block) < stream_block:
+                break
+    finally:
+        with span("reorient.finish"):
+            for fh in handles.values():
+                fh.close()
+    with open(os.path.join(outdir, f"{name}_stats.out"), "w") as fh:
+        for k, v in stats.items():
+            fh.write(f"{k}\t{v}\n")
+    if nblocks == 1:
+        res.stats = stats
+        return res
+    out = ReorientResult()
+    out.stats = stats
+    return out
 
 
 def reorient_file(in_path: str, primer_fasta: str, config_path: str,
                   outdir: str, name: str,
                   cfg: ReorientConfig = ReorientConfig(),
                   stream_block: int = 65536) -> ReorientResult:
-    """File-level wrapper reproducing the 01_pychopper.sh output layout.
-
-    Streams the input in ``stream_block``-read blocks with incremental
-    output writes, so host memory is O(block), not O(file) (the
-    reference pipes through pychopper; a flowcell FASTQ must not
-    materialize as Python records — VERDICT r4 missing#4). The q
-    cutoff autotunes once, on the first block's subsample, then stays
-    fixed (pychopper's tuner also samples the head of the file). The
-    returned ReorientResult carries full record lists only when the
-    file fits one block; multi-block runs return stats alone (the
-    pipeline consumes the written files, not the lists).
-    """
-    from ..io.fastq import _open, read_records
+    """File-level wrapper reproducing the 01_pychopper.sh output layout:
+    :func:`reorient_stream` over the reads of ``in_path`` with the
+    orientation config of ``config_path``."""
+    from ..io.fastq import read_records
     with open(config_path) as fh:
         config_text = fh.read()
-    r = Reorienter(primer_fasta, config_text, cfg)
-    os.makedirs(outdir, exist_ok=True)
-    paths = {k: os.path.join(outdir, f"{name}_{k}.fastq")
-             for k in ("pass", "rescued", "unclass", "short")}
-    handles = {k: _open(p, "wt") for k, p in paths.items()}
-    stats: Dict[str, int] = {}
-    last: Optional[ReorientResult] = None
-    nblocks = 0
-
-    def emit(fh, recs):
-        fh.write("".join(f"@{x.desc}\n{x.seq}\n+\n{x.qual or ''}\n"
-                         for x in recs))
-
-    try:
-        block: List[Record] = []
-        for rec in read_records(in_path):
-            block.append(rec)
-            if len(block) >= stream_block:
-                res = r.run(block)
-                nblocks += 1
-                for k, v in res.stats.items():
-                    stats[k] = stats.get(k, 0) + v
-                emit(handles["pass"], res.passed)
-                emit(handles["rescued"], res.rescued)
-                emit(handles["unclass"], res.unclass)
-                emit(handles["short"], res.short)
-                block = []
-        res = r.run(block)
-        nblocks += 1
-        last = res
-        for k, v in res.stats.items():
-            stats[k] = stats.get(k, 0) + v
-        emit(handles["pass"], res.passed)
-        emit(handles["rescued"], res.rescued)
-        emit(handles["unclass"], res.unclass)
-        emit(handles["short"], res.short)
-    finally:
-        for fh in handles.values():
-            fh.close()
-    with open(os.path.join(outdir, f"{name}_stats.out"), "w") as fh:
-        for k, v in stats.items():
-            fh.write(f"{k}\t{v}\n")
-    if nblocks == 1 and last is not None:
-        last.stats = stats
-        return last
-    out = ReorientResult()
-    out.stats = stats
-    return out
+    return reorient_stream(read_records(in_path), primer_fasta, config_text,
+                           outdir, name, cfg, stream_block)
