@@ -48,7 +48,10 @@ Phases:
      reads, one bin enlarged to 1000 reads of two species so it sorts
      through both Myers entry points: 96 bins, 1 species group per bin
      (2 in the big one), every consensus >= 0.97 identical to its planted
-     insert, and every locate and Myers kernel launched during the run;
+     insert, and every locate, Myers and pack kernel launched during the
+     run (in every run_all, one pack launch for each batch that
+     locate_batch_lazy sends to the locate kernels, none for a batch the
+     C++ short-cut takes);
   7. run_all again with the consensus pileup's device backend
      (ORC_PILEUP_BACKEND=device): both path-bits contracts launched, and
      every consensusfile.fasta and primerless/ file byte-identical to
@@ -149,6 +152,14 @@ Phases:
      span masked by X as the fused-read re-scan masks it, some empty; at
      q 0.90 and 0.70; all 8 outputs, nloc and nacc included, equal to
      locate_plain_ks; kernel and plain version timed.
+18. the pack kernel (csrc/pack.cu) against its plain version and the
+     host packing on phase 17's reads at L 4,096 and 8,192 with both
+     tables, timed against its byte bound (device time: 20 launches
+     queued behind a spin of the card); a 2,048-read scan batch of
+     stage 01's mix (~3% fused, L 8,192) packed on the host and on the
+     card, each timed on the host clock; locate_batch_lazy with the
+     pychopper bank through the device pack equal to the host-packed
+     route.
 Phase 1 prints each kernel source's ptxas report (registers, stack
 frame). Prints a JSON line of per-kernel numbers, the card line, and last
 the result line. Exits non-zero, printing no result, when any phase fails or
@@ -257,6 +268,27 @@ def cuda_ms(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
+def device_ms(fn, n=20, reps=5):
+    """Median device ms a call of ``reps`` runs of ``n`` calls, enqueued
+    behind a spin of the card (``torch.cuda._sleep``, ~30 ms) so that
+    the host's launch cost stays off the events' interval: for kernels
+    shorter than their launch."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return sorted(times)[len(times) // 2]
+
+
 def read_tree(root):
     """{relative path: bytes} of every file under root; .gz files are
     decompressed (their headers carry a write time)."""
@@ -357,9 +389,12 @@ class Smoke:
     def record(self, name, source, replaces, err, ms, plain_ms, n_bytes,
                n_ops, ops_per_s=INT_OPS_PER_S):
         bound_ms, bound_by = bound(n_bytes, n_ops, ops_per_s)
+        # launches come from a main path's counters (:meth:`launches`),
+        # whichever phase ran first; None where no main path counts them
+        launches = self.kernels.get(name, {}).get("launches")
         self.kernels[name] = {"name": name, "route": "cuda",
                               "source": source, "replaces": replaces,
-                              "launches": 0, "max_abs_err": err,
+                              "launches": launches, "max_abs_err": err,
                               "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": None}
@@ -791,14 +826,20 @@ class Smoke:
         before; returns (report, launch counts), and keeps the launches
         per device in ``self.by_device``. The batched locate must not
         launch: every bank of the smoke plates is of 59-mers, under the 63
-        bp of its route."""
+        bp of its route. Every batch that ``locate_batch_lazy`` sends to
+        the locate kernels must launch the pack kernel once, and no batch
+        that the C++ short-cut takes (NATIVE_SMALL_READS) may."""
+        import collections
         import contextlib
         import io
         import shutil
+        import threading
         from tpu_orc_torch import cli
         from tpu_orc_torch.align import batched as BL
         from tpu_orc_torch.align import locate as L, myers as M, pileup as P
+        from tpu_orc_torch.align import pack as PK
         from tpu_orc_torch.cluster import consensus
+        from tpu_orc_torch.demux import demux as D
         from tpu_orc_torch.rrna import hmm as H
         shutil.rmtree(out, ignore_errors=True)
         argv = ["run-all", fq, "-o", out, "-n", "plate", "-a", amplicon,
@@ -809,9 +850,25 @@ class Smoke:
         log = io.StringIO()      # the CLI narrates stages, then the report
         counters = {"locate": L.LAUNCHES, "myers": M.LAUNCHES,
                     "pileup": P.LAUNCHES, "viterbi": H.LAUNCHES,
-                    "batched": BL.LAUNCHES}
+                    "batched": BL.LAUNCHES, "pack": PK.LAUNCHES}
+        routes, lock = collections.Counter(), threading.Lock()
+        real_lazy = D.locate_batch_lazy
+
+        def lazy(bank, seqs, flags, *args, **kwargs):
+            """locate_batch_lazy, each call on a CUDA bank's locate
+            kernels' route counted by what it did: a non-empty batch
+            dispatched to the kernels, an empty one, or the short-cut."""
+            handle = real_lazy(bank, seqs, flags, *args, **kwargs)
+            if D._use_pallas(bank, flags):
+                kind = ("native" if handle[0] == "done"
+                        else "kernels" if handle[3] else "empty")
+                with lock:
+                    routes[kind] += 1
+            return handle
+
         saved = consensus.PILEUP_BACKEND
         consensus.PILEUP_BACKEND = backend
+        D.locate_batch_lazy = lazy    # looked up at call time
         try:
             for c in counters.values():
                 c.reset()
@@ -824,6 +881,7 @@ class Smoke:
             self.by_device = per_device(counters)
         finally:
             consensus.PILEUP_BACKEND = saved
+            D.locate_batch_lazy = real_lazy
         assert rc == 0, rc
         rep = json.loads(log.getvalue().strip().splitlines()[-1])
         print(f"   tpu_orc_torch.cli {' '.join(argv[:1] + list(extra))} -a "
@@ -831,6 +889,13 @@ class Smoke:
               f"{L.LOCATE_IMPL}, pileup backend {backend}: {n_reads} reads, "
               f"{wall:.1f} s wall")
         print(f"   launch counts during run_all: {counts}")
+        print(f"   locate_batch_lazy on the locate kernels' route: "
+              f"{routes['kernels']} batches to the kernels, "
+              f"{routes['empty']} empty, {routes['native']} by the C++ "
+              f"short-cut; pack launches {counts['pack_pack']}")
+        assert counts["pack_pack"] == routes["kernels"], \
+            (f"pack launches {counts['pack_pack']} against "
+             f"{routes['kernels']} batches to the locate kernels")
         on = {k: n for k, n in counts.items() if k.startswith("batched_")
               and n}
         assert not on, f"batched locate launched on 59-mer banks: {on}"
@@ -864,7 +929,8 @@ class Smoke:
         names = [f"locate_{m}" for m in ("front", "back", "infix")]
         self.launches({k: counts[k] for k in names})
         self.launches(myers_launches(counts))
-        names += list(myers_launches(counts))
+        self.launches({"pack_masks_T": counts["pack_pack"]})
+        names += list(myers_launches(counts)) + ["pack_masks_T"]
         bins = rep["barcodes"]
         assert rep["demux"]["bins"] == 96, rep["demux"]
         worst = 1.0
@@ -1020,21 +1086,27 @@ class Smoke:
         nloc is 2); every 64th read
         with a 59-base span masked by X, every 97th empty."""
         from tpu_orc_torch import synthetic
-        from tpu_orc_torch.io import encode
-        _, recs, _ = self.rrna_plate()
-        seqs = [r.seq for r in recs[:2048]]
-        other = lambda k: seqs[(k + 7) % 2048]
-        fused = [s if k % 2 else s + (other(k) if k % 4 == 0
-                                      else encode.revcomp(other(k)))
-                 for k, s in enumerate(seqs)]
         out = {}
-        for L, batch in ((4096, seqs), (8192, fused)):
-            batch = [s[:1000] + "X" * 59 + s[1059:] if k % 64 == 0 else s
-                     for k, s in enumerate(batch)]
+        for L, batch in self.long_seqs().items():
             masks, lens = synthetic.read_masks(batch, L)
             lens[::97] = 0
             out[L] = masks, lens
         return out
+
+    def long_seqs(self, every: int = 2):
+        """{L: reads} of :meth:`long_reads` before packing: at L 8,192
+        one read in ``every`` fused (2: half, phase 17; 33: ~3%, the
+        share of stage 01's raw stream)."""
+        from tpu_orc_torch.io import encode
+        _, recs, _ = self.rrna_plate()
+        seqs = [r.seq for r in recs[:2048]]
+        other = lambda k: seqs[(k + 7) % 2048]
+        fused = [s + (other(k) if k % (2 * every) == 0
+                      else encode.revcomp(other(k))) if k % every == 0
+                 else s for k, s in enumerate(seqs)]
+        return {L: [s[:1000] + "X" * 59 + s[1059:] if k % 64 == 0 else s
+                    for k, s in enumerate(batch)]
+                for L, batch in ((4096, seqs), (8192, fused))}
 
     def locate_ks_long(self):
         """The KS kernel in INFIX mode with the pychopper bank at L 4,096
@@ -1082,6 +1154,111 @@ class Smoke:
                                 max_abs_err(got, want), ms, pms,
                                 nbytes(*tabs, rt, ln, got),
                                 OPS_PER_CELL["locate"] * cells)
+
+    # -- phase 18 --------------------------------------------------------
+    def pack(self):
+        """csrc/pack.cu against pack_masks_plain on phase 17's reads (every
+        97th empty) at L 4,096 and 8,192, both tables, the kernel timed
+        against its byte bound; then a scan batch of stage 01's mix (~3%
+        fused, L 8,192) dispatched both ways, host clock to the end of
+        the device's work: the host packing (ascii_matrix,
+        read_masks_matrix, transpose, upload) against the device pack
+        (join, upload, kernel); and locate_batch_lazy with the pychopper
+        bank on it equal to the host-packed route, all 8 outputs."""
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch.align import locate as L
+        from tpu_orc_torch.align import pack as PK
+        from tpu_orc_torch.align.locate import INFIX
+        from tpu_orc_torch.demux import demux as D
+        from tpu_orc_torch.demux.reorient import build_primer_bank
+        from tpu_orc_torch.io import encode
+        tables = (("read", encode.mask_table(encode.encode_read_masks),
+                   encode.read_masks_matrix),
+                  ("iupac", encode.mask_table(encode.encode_read_masks_iupac),
+                   encode.iupac_masks_matrix))
+        for Lc, seqs in self.long_seqs().items():
+            seqs = ["" if k % 97 == 0 else q for k, q in enumerate(seqs)]
+            for name, tab, host in tables:
+                got, lens = PK.pack_reads_T(seqs, Lc, tab, "cuda")
+                t0 = time.perf_counter()
+                want, _ = PK.pack_reads_T(seqs, Lc, tab, "cpu")
+                pms = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"pack {name} at L {Lc}: differs "
+                                         f"from the plain version")
+                amat, hl = encode.ascii_matrix(seqs, max_len=Lc)
+                if not np.array_equal(want.numpy(), host(amat, hl).T):
+                    raise AssertionError(f"pack {name} at L {Lc}: plain "
+                                         f"differs from the host packing")
+                n = sum(map(len, seqs))
+                data = torch.frombuffer(bytearray("".join(seqs), "ascii"),
+                                        dtype=torch.uint8).cuda()
+                offs = torch.from_numpy(np.concatenate(
+                    [[0], np.cumsum(lens.cpu().numpy()[:-1])])).cuda()
+                launch = lambda: PK.pack_masks_cuda(data, offs, lens, tab,
+                                                    Lc)
+                ms, with_launch = device_ms(launch), cuda_ms(launch)
+                print(f"   pack {name}, 2,048 reads x L {Lc}, {n:,} bytes "
+                      f"in, {int((lens == 0).sum())} empty: equal to plain "
+                      f"and to the host packing; kernel {ms:.4f} ms "
+                      f"({with_launch:.4f} ms with its launch), plain "
+                      f"{pms:.3f} ms (one call)", flush=True)
+                if name == "read":     # phase 6 counts its launches
+                    self.record("pack_masks_T" if Lc == 8192
+                                else f"pack_masks_T_L{Lc}",
+                                "tpu_orc_torch/csrc/pack.cu",
+                                "none (tpu_orc packs on the host: "
+                                "io/encode.py ascii_matrix, "
+                                "read_masks_matrix)", 0, ms, pms,
+                                nbytes(data, offs, lens, got) + 256, 0)
+        seqs = self.long_seqs(every=33)[8192]
+        tab = encode.mask_table(encode.encode_read_masks)
+
+        def host_route():
+            amat, hl = encode.ascii_matrix(seqs, max_len=8192)
+            masks = encode.read_masks_matrix(amat, hl)
+            torch.from_numpy(np.ascontiguousarray(masks.T)).cuda()
+            torch.from_numpy(hl).cuda()
+
+        old = host_ms(host_route)
+        new = host_ms(lambda: PK.pack_reads_T(seqs, 8192, tab, "cuda"))
+        join = host_ms(lambda: bytearray("".join(seqs), "ascii"))
+        buf = torch.frombuffer(bytearray("".join(seqs), "ascii"),
+                               dtype=torch.uint8)
+        up = host_ms(lambda: buf.cuda())
+        n = sum(map(len, seqs))
+        print(f"   scan batch of stage 01's mix (2,048 reads, "
+              f"{sum(len(q) > 4096 for q in seqs)} fused, {n:,} bytes, L "
+              f"8,192) to the card's [L, B] masks: host packing {old:.3f} "
+              f"ms ({old / 2.048:.2f} us a read), device pack {new:.3f} ms "
+              f"({new / 2.048:.2f} us a read; the join and encode "
+              f"{join:.3f} ms, the bytes' pageable upload {up:.3f} ms)",
+              flush=True)
+        bank = build_primer_bank(os.path.join(
+            self.adapters, "M13_seqs_for_pychopper.fa"), 0.9, "cuda")[0]
+        tabs = L.tables_for_bank(bank, "infix", 3)
+        L.LOCATE_IMPL = "ks"
+        try:
+            before = PK.LAUNCHES.snapshot()["pack"]
+            got = D.locate_batch_collect(D.locate_batch_lazy(
+                bank, seqs, INFIX, 3))
+            amat, hl = encode.ascii_matrix(seqs, max_len=8192)
+            want = L.locate_collect(*L.locate_dispatch(
+                tabs, encode.read_masks_matrix(amat, hl), hl, "infix",
+                "cuda"))
+        finally:
+            L.LOCATE_IMPL = "wf"
+        assert PK.LAUNCHES.snapshot()["pack"] == before + 1
+        bad = [f for f in want._fields
+               if not np.array_equal(getattr(got, f), getattr(want, f))]
+        if bad:
+            raise AssertionError(f"locate_batch_lazy, device pack: {bad} "
+                                 f"differ from the host-packed route")
+        print(f"   locate_batch_lazy (KS INFIX, pychopper bank) on the "
+              f"device pack: equal to the host-packed route in all 8 "
+              f"outputs, {int(got.valid.sum())} valid hits", flush=True)
 
     # -- phase 9 ---------------------------------------------------------
     def viterbi(self):
@@ -1163,10 +1340,12 @@ class Smoke:
                        + counts["viterbi_scan_block"]})
         self.launches({f"{k}_rrna": n
                        for k, n in myers_launches(counts).items()})
+        self.launches({"pack_masks_T_rrna": counts["pack_pack"]})
         assert rep["demux"]["bins"] == 96, rep["demux"]
         zero = [k for k in ("locate_ks_front", "locate_ks_back",
                             "locate_ks_infix", "viterbi_scan_warp",
-                            "myers_dense_warp", "myers_pairs_warp")
+                            "myers_dense_warp", "myers_pairs_warp",
+                            "pack_pack")
                 if counts[k] == 0]
         assert not zero, f"kernels not launched during run_all: {zero}"
         off = [k for k in ("myers_dense_thread", "myers_pairs_thread",
@@ -2653,6 +2832,8 @@ def main(argv=None) -> int:
     phase("16 bench sections at full size", s.bench)
     phase("17 KS INFIX locate, pychopper bank, at L 4,096 and 8,192",
           s.locate_ks_long)
+    phase("18 pack kernel vs plain, and stage 01's scan batch packed on "
+          "the card", s.pack)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"chip_smoke: failed phases: {s.failed}", file=sys.stderr)

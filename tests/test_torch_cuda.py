@@ -29,6 +29,12 @@ from tpu_orc_torch.demux import demux as D
 from tpu_orc_torch.demux.adapters import AdapterBank
 from tpu_orc_torch.io import encode
 from tpu_orc_torch.rrna import hmm as H
+from tpu_orc_torch.align import pack as PK
+from tpu_orc_torch.align.locate import INFIX
+
+from pack_cases import CASES as PACK_CASES, ENCODERS as PACK_ENCODERS
+from pack_cases import TABLES as PACK_TABLES
+from pack_cases import batch as pack_batch, pychopper_reads
 
 pytestmark = pytest.mark.cuda
 
@@ -155,6 +161,83 @@ def test_locate_ks_infix_pychopper_long_reads(cuda, tmp_path, L_cols):
         torch.cuda.synchronize()
         assert int(want[4].sum()) > 48 and int(want[6].max()) > 1
         assert torch.equal(got, want), q
+
+@pytest.mark.parametrize("case", PACK_CASES)
+@pytest.mark.parametrize("L_cols", [128, 4096, 8192])
+@pytest.mark.parametrize("table", sorted(PACK_TABLES))
+def test_pack_kernel_equals_plain(cuda, table, L_cols, case):
+    """csrc/pack.cu against pack_masks_plain on the same reads: empty
+    reads, reads of exactly L, X, N, IUPAC codes and lower case."""
+    seqs = pack_batch(case, L_cols)
+    tab = PACK_TABLES[table][0]
+    before = PK.LAUNCHES.snapshot()["pack"]
+    got, glens = PK.pack_reads_T(seqs, L_cols, tab, cuda)
+    want, wlens = PK.pack_reads_T(seqs, L_cols, tab, "cpu")
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES.snapshot()["pack"] == before + 1
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got.cpu(), want) and torch.equal(glens.cpu(), wlens)
+
+
+@pytest.mark.parametrize("B", [2048, 2047])
+@pytest.mark.parametrize("table", sorted(PACK_TABLES))
+def test_pack_kernel_scan_batch(cuda, table, B):
+    """A stage-01 scan batch at L 8,192: reads of 3.4-3.9 kb, 3% of them
+    fused to ~7.5 kb, N in some, a few empty; B even and odd. The
+    counters count one device pack and the bytes uploaded."""
+    from tpu_orc_torch.utils.profiling import recording
+    rng = np.random.default_rng(B)
+    lens = rng.integers(3400, 3900, size=B)
+    lens[rng.random(B) < 0.03] = 7500
+    lens[::331] = 0
+    abc = np.frombuffer(b"ACGTN", np.uint8)
+    raw = abc[rng.choice(5, size=int(lens.sum()),
+                         p=[.245, .245, .245, .245, .02])].tobytes()
+    cut = np.concatenate([[0], np.cumsum(lens)])
+    seqs = [raw[cut[k]:cut[k + 1]].decode() for k in range(B)]
+    tab = PACK_TABLES[table][0]
+    with recording() as rec:
+        got, _ = PK.pack_reads_T(seqs, 8192, tab, cuda)
+    want = PACK_TABLES[table][1](*encode.ascii_matrix(seqs, max_len=8192)).T
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    counters = rec.counters()
+    assert counters["locate.device_packs"] == 1
+    assert counters["locate.pack_h2d_bytes"] == int(lens.sum()) + 12 * B
+
+
+@pytest.mark.parametrize("encoder", ["read", "iupac"])
+def test_locate_batch_lazy_packs_on_card(cuda, tmp_path, monkeypatch,
+                                         encoder):
+    """locate_batch_lazy on a CUDA pychopper bank (the device pack) equals
+    the host-packed route to the same KS kernel, on all eight
+    LocateResult fields, at L 8,192 with fused reads; one device pack a
+    batch and the launches keep their shape."""
+    from tpu_orc_torch.demux.reorient import build_primer_bank
+    from tpu_orc_torch.utils.profiling import recording
+    monkeypatch.setattr(L, "LOCATE_IMPL", "ks")
+    d = synthetic.write_adapter_dir(str(tmp_path))
+    bank = build_primer_bank(os.path.join(d, synthetic.FILES[2]), 0.9,
+                             "cuda")[0]
+    enc = PACK_ENCODERS[encoder]
+    seqs = pychopper_reads(301, seed=3, insert=(3300, 3700))
+    Lc = D._bucket_pad(max(map(len, seqs)))
+    with recording() as rec:
+        got = D.locate_batch_collect(
+            D.locate_batch_lazy(bank, seqs, INFIX, 3, enc))
+    masks = PACK_TABLES[encoder][1](*encode.ascii_matrix(seqs, max_len=Lc))
+    want = L.locate_collect(*L.locate_dispatch(
+        L.tables_for_bank(bank, "infix", 3), masks,
+        [len(s) for s in seqs], "infix", cuda))
+    assert Lc == 8192
+    c = rec.counters()
+    assert c["locate.device_packs"] == 1
+    assert c[f"locate.launches/ks/infix/L{Lc}/A4/R64"] == 1
+    assert int(want.valid.sum()) > 301 and int(want.nloc.max()) > 1
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+
 
 def test_locate_ks_kernel_equals_wf_kernel(cuda):
     """The two kernels agree in every mode at min_overlap 3; at 0 they

@@ -3,7 +3,8 @@ their plain PyTorch versions.
 
 Port of ``tpu_orc/align/pallas_locate.py``: ``BankTables`` (:461),
 ``tables_for_bank`` (:523), ``_mode_of`` (:545), ``LOCATE_IMPL`` (:388),
-``locate_dispatch`` (:555), ``locate_collect`` (:589) and
+``locate_dispatch`` (:555; and ``locate_dispatch_T``, its sibling for a
+batch packed on its device), ``locate_collect`` (:589) and
 ``locate_pallas`` (:602, here ``locate_masks``). ``locate_tiles`` takes
 the place of the Pallas launch (:394); ``impl`` (default
 :data:`LOCATE_IMPL`, from ``TPU_ORC_LOCATE_IMPL``) picks the kernel it
@@ -575,6 +576,15 @@ def locate_tiles(tables, reads_T: torch.Tensor, lens: torch.Tensor,
     return kernel(tables, reads_T, lens, mode, A)
 
 
+def check_read_lens(read_lens, L: int) -> np.ndarray:
+    """``read_lens`` as int32, or ValueError where one lies outside
+    [0, L]: checked on the host, before the lengths are uploaded."""
+    read_lens = np.ascontiguousarray(read_lens, np.int32)
+    if read_lens.size and (read_lens.min() < 0 or read_lens.max() > L):
+        raise ValueError("read lengths must lie in [0, L]")
+    return read_lens
+
+
 def locate_dispatch(tabs: BankTables, read_masks: np.ndarray,
                     read_lens: np.ndarray, mode: str, device):
     """Phase A of a pipelined locate: upload + launch, NO fetch.
@@ -582,16 +592,23 @@ def locate_dispatch(tabs: BankTables, read_masks: np.ndarray,
     Returns (lazy [8, A, B] tensor on ``device``, A, B0) for
     locate_collect. On CUDA the launch is asynchronous, so host work on
     chunk k overlaps device compute for chunks k+1..."""
-    B0, L = read_masks.shape
-    read_lens = np.asarray(read_lens, np.int32)
-    if B0 and (read_lens.min() < 0 or read_lens.max() > L):
-        raise ValueError("read lengths must lie in [0, L]")
+    read_lens = check_read_lens(read_lens, read_masks.shape[1])
     device = torch.device(device)
     reads_T = torch.from_numpy(
         np.ascontiguousarray(read_masks.T, np.uint8)).to(device)
-    lens = torch.from_numpy(np.ascontiguousarray(read_lens)).to(device)
-    lazy = locate_tiles(tabs.tensors(device), reads_T, lens, mode, tabs.A)
-    return lazy, tabs.A, B0
+    return locate_dispatch_T(tabs, reads_T,
+                             torch.from_numpy(read_lens).to(device), mode)
+
+
+def locate_dispatch_T(tabs: BankTables, reads_T: torch.Tensor,
+                      lens: torch.Tensor, mode: str):
+    """:func:`locate_dispatch` for a batch already on its device:
+    reads_T [L, B] uint8 read masks and lens [B] int32 there, as
+    ``align/pack.py::pack_reads_T`` gives them, its lengths checked
+    against [0, L] on the host before their upload. Same return."""
+    lazy = locate_tiles(tabs.tensors(reads_T.device), reads_T, lens, mode,
+                        tabs.A)
+    return lazy, tabs.A, reads_T.shape[1]
 
 
 def locate_collect(lazy, A: int, B0: int) -> LocateResult:

@@ -56,7 +56,9 @@ from ..io.fastq import Record, _open, write_records
 from ..align.batched import (batched_locate, batched_locate_with_rc,
                              to_numpy)
 from ..align.locate import (INFIX, _mode_of, locate_collect,
-                            locate_dispatch, tables_for_bank)
+                            locate_dispatch, locate_dispatch_T,
+                            tables_for_bank)
+from ..align.pack import pack_reads_T
 from ..align.tables import LocateResult
 from ..utils.profiling import count, span
 from .adapters import AdapterBank
@@ -222,13 +224,23 @@ def locate_batch_lazy(bank: AdapterBank, seqs: Sequence[str], flags,
     version, and on either device the batched locate (other flag sets,
     banks of 63 bp or more), compute eagerly (identical semantics, no
     pipelining). Tiny batches short-circuit to the C++ oracle (see
-    NATIVE_SMALL_READS)."""
+    NATIVE_SMALL_READS). On the locate kernels' route with either
+    standard encoder the reads' bytes go to the bank's device as they
+    are and are packed there (``align/pack.py::pack_reads_T``: the
+    kernel on CUDA, the host packing on the CPU); the batched route and
+    custom encoders pack on the host."""
     small = _locate_native_small(bank, seqs, flags, min_overlap, encoder)
     if small is not None:
         return ("done", small)
     L = _bucket_pad(max((len(s) for s in seqs), default=1))
-    # vectorized packing for the two standard encoders (identical
-    # lookup tables; pack_batch kept for custom encoders)
+    tab = encode.mask_table(encoder)
+    if tab is not None and _use_tiles(bank, flags):
+        tabs = tables_for_bank(bank, _mode_of(flags), min_overlap)
+        reads_T, lens = pack_reads_T(seqs, L, tab, bank.device)
+        return ("lazy", *locate_dispatch_T(tabs, reads_T, lens,
+                                           _mode_of(flags)))
+    # host packing: vectorized for the two standard encoders on the
+    # batched route, pack_batch for custom encoders on either route
     if encoder is encode.encode_read_masks:
         amat, lens = encode.ascii_matrix(seqs, max_len=L)
         masks = encode.read_masks_matrix(amat, lens)

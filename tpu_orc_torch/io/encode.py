@@ -112,6 +112,18 @@ def encode_read_masks_iupac(seq) -> np.ndarray:
     return _REF_MASK_TAB[_as_bytes(seq)]
 
 
+def mask_table(encoder):
+    """The 256 byte-to-mask entries behind ``encoder``: ``_READ_MASK_TAB``
+    for :func:`encode_read_masks`, ``_REF_MASK_TAB`` for
+    :func:`encode_read_masks_iupac`; None for any other encoder (a batch
+    of it is packed read by read)."""
+    if encoder is encode_read_masks:
+        return _READ_MASK_TAB
+    if encoder is encode_read_masks_iupac:
+        return _REF_MASK_TAB
+    return None
+
+
 def encode_ref_masks(seq) -> np.ndarray:
     """ASCII adapter/primer -> uint8 IUPAC match masks (wildcards expanded)."""
     return _REF_MASK_TAB[_as_bytes(seq)]
