@@ -106,9 +106,9 @@ Phases:
  14. the multi-device path over a mesh of every visible card (cuda:0
      listed twice on a one-card host, where the stripes run in order on
      one stream): (a) decide_multi on 65,536 COI reads at L 640 equal to
-     decide, to the plain path on 4,096 of them, and decide_packed
-     equal, with reads/s over one card (one and two stripes) and over
-     every card; (b) sharded_dual_demux_step and sharded_demux_step on
+     decide and to the plain path on 4,096 of them, with reads/s over
+     one card (one and two stripes) and over every card; (b)
+     sharded_dual_demux_step and sharded_demux_step on
      70 bp banks at 16,384 reads equal to the steps on cuda:0 alone,
      histograms consistent; (c) device_parallel_pairwise dense and gated
      on a 1,000-read COI bin (W 17) and a 400-read rRNA bin (W 112)
@@ -1791,19 +1791,20 @@ class Smoke:
         """(a) decide_multi on a flowcell chunk of 65,536 COI reads at the
         read-length bucket ``assign`` picks (L 640): the 8 vectors of
         single-device ``decide``; on 4,096 of them the plain path's;
-        ``decide_packed`` the same; reads/s over one card (one stripe, two
-        stripes) and over every card."""
+        reads/s over one card (one stripe, two stripes) and over every
+        card."""
         import numpy as np
         from tpu_orc_torch import synthetic
         from tpu_orc_torch.align import locate as L
         from tpu_orc_torch.align.locate import locate_plain
-        from tpu_orc_torch.demux.fused import FusedDemux, _pick_len
+        from tpu_orc_torch.demux.fused import FusedDemux
         from tpu_orc_torch.io import encode
         sp5, sp27 = self.mesh_banks()
         t0 = time.perf_counter()
         recs, _ = synthetic.make_plate(683, seed=31, insert_len=450)
         seqs = [r.seq for r in recs[:65536]]
-        Lb = _pick_len(max(len(x) for x in seqs), 256)   # assign's bucket
+        # assign's bucket
+        Lb = max(encode.bucket_len(max(len(x) for x in seqs)), 256)
         amat, lens = encode.ascii_matrix(seqs, max_len=Lb)
         masks = encode.read_masks_matrix(amat, lens)
         print(f"   {len(seqs)} reads made and packed at L {Lb} in "
@@ -1822,12 +1823,9 @@ class Smoke:
             masks[:n], lens[:n])
         for name, g, w in zip(want._fields, got, plain):
             assert np.array_equal(g[:n], w), f"{name} differs from plain"
-        packed = fd.decide_packed(encode.codes_matrix(amat, lens), lens)
-        for name, g, w in zip(want._fields, packed, want):
-            assert np.array_equal(g, w), f"decide_packed {name} differs"
         print(f"   decide_multi over {self.mesh_devs}: 8 vectors equal to "
               f"decide on cuda:0 ({int((got.idx2 >= 0).sum())} reads binned"
-              f"), to the plain path on the first {n}; decide_packed equal; "
+              f"), to the plain path on the first {n}; "
               f"locate launches by device {per}")
         configs = [("1 card, 1 stripe", ["cuda:0"]),
                    ("1 card, 2 stripes", ["cuda:0", "cuda:0"])]
@@ -2820,7 +2818,7 @@ def main(argv=None) -> int:
           [p6, p10])
     p14 = "14 multi-device path: mesh"
     phase(p14, s.mesh_setup)
-    phase("14a decide_multi and decide_packed", s.mesh_decide, [p14])
+    phase("14a decide_multi", s.mesh_decide, [p14])
     phase("14b sharded demux steps on 70 bp banks", s.mesh_sharded_demux,
           [p14])
     phase("14c device_parallel_pairwise and sharded_pairwise_step",

@@ -1,6 +1,6 @@
 """tpu_orc_torch's multi-device steps (dist/sharded.py, decide_multi),
-multi-host on torch.distributed (dist/multihost.py), the packed upload
-and prewarm, against tpu_orc (the demux stream, the scorer and run_all
+multi-host on torch.distributed (dist/multihost.py) and prewarm,
+against tpu_orc (the demux stream, the scorer and run_all
 on a mesh are in test_torch_dist_run.py).
 
 The port's meshes here are the CPU device listed several times (its
@@ -33,10 +33,7 @@ from tpu_orc_torch import cli, synthetic
 from tpu_orc_torch.demux import fused as port_fused
 from tpu_orc_torch.demux.adapters import AdapterBank
 from tpu_orc_torch.dist import multihost, sharded
-from tpu_orc_torch.io.fastq import Record
 from tpu_orc_torch.pipeline import stages as port_stages
-
-from test_torch_stages import fields_of
 
 # One intra-op thread: PyTorch's OpenMP workers spin between ops and
 # starve the other pytest-xdist workers on a shared CPU.
@@ -249,7 +246,7 @@ def test_device_parallel_pairwise_skips_a_stripe_without_tiles(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the fused demux per device, and the packed upload
+# the fused demux per device
 # ---------------------------------------------------------------------------
 
 def test_decide_multi_equals_reference_and_decide(banks):
@@ -263,49 +260,6 @@ def test_decide_multi_equals_reference_and_decide(banks):
     for name, g, w, s in zip(got._fields, got, want, single):
         np.testing.assert_array_equal(g, w, name)
         np.testing.assert_array_equal(g, s, name)
-
-
-def test_unpack_to_masks_equals_reference():
-    rng = np.random.default_rng(6)
-    B, L = 16, 128
-    codes = rng.integers(0, 5, (B, L)).astype(np.uint8)
-    lens = rng.integers(1, L + 1, B).astype(np.int32)
-    p2, oth = encode.pack_codes_2bit(codes, lens)
-    got = port_fused._unpack_to_masks(torch.from_numpy(p2),
-                                      torch.from_numpy(oth), L)
-    want = np.asarray(jax.jit(
-        lambda a, b: ref_fused._unpack_to_masks(a, b, L))(p2, oth))
-    assert got.dtype == torch.uint8
-    np.testing.assert_array_equal(got.numpy(), want)
-
-
-def test_decide_packed_equals_reference_and_decide(banks):
-    (sp5, sp27), (r5, r27) = banks
-    seqs = demux_seqs(10, sp5, sp27, 24)
-    amat, lens = encode.ascii_matrix(seqs, max_len=256)
-    codes = encode.codes_matrix(amat, lens)
-    got = port_fused.FusedDemux(sp5, sp27).decide_packed(codes, lens)
-    want = ref_fused.FusedDemux(r5, r27, interpret=True).decide_packed(
-        codes, lens)
-    plain = port_fused.FusedDemux(sp5, sp27).decide(
-        encode.read_masks_matrix(amat, lens), lens)
-    for name, g, w, p in zip(got._fields, got, want, plain):
-        np.testing.assert_array_equal(g, w, name)
-        np.testing.assert_array_equal(g, p, name)
-
-
-def test_assign_packed_upload_equals_reference(banks, monkeypatch):
-    (sp5, sp27), (r5, r27) = banks
-    seqs = demux_seqs(11, sp5, sp27, 30)
-    recs = [Record(f"r{i}", f"r{i} x", s, "I" * len(s))
-            for i, s in enumerate(seqs)]
-    rrecs = [RefRecord(r.id, r.desc, r.seq, r.qual) for r in recs]
-    plain = port_fused.FusedDemux(sp5, sp27).assign(recs, batch_size=16)
-    monkeypatch.setenv("ORC_PACKED_UPLOAD", "1")
-    got = port_fused.FusedDemux(sp5, sp27).assign(recs, batch_size=16)
-    want = ref_fused.FusedDemux(r5, r27, interpret=True).assign(
-        rrecs, batch_size=16)
-    assert fields_of(got) == fields_of(want) == fields_of(plain)
 
 
 # ---------------------------------------------------------------------------

@@ -129,7 +129,7 @@ def test_locate_batch_lazy_device_route_equals_host_route(
     bank = build_primer_bank(os.path.join(d, synthetic.FILES[2]), 0.9,
                              "cpu")[0]
     seqs = pychopper_reads(24, seed=7)
-    Lc = D._bucket_pad(max(map(len, seqs)))
+    Lc = encode.bucket_len(max(map(len, seqs)))
     calls = []
     real = P.pack_reads_T
     monkeypatch.setattr(D, "pack_reads_T",

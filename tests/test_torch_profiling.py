@@ -29,6 +29,7 @@ from tpu_orc_torch.demux import demux as port_demux
 from tpu_orc_torch.demux import fused as port_fused
 from tpu_orc_torch.demux.adapters import AdapterBank
 from tpu_orc_torch.demux.demux import dual_round_demux_stream
+from tpu_orc_torch.io import encode
 from tpu_orc_torch.pipeline import stages as port_stages
 from tpu_orc_torch.utils import profiling
 from tpu_orc_torch.utils.profiling import (count, device_trace, recording,
@@ -330,7 +331,7 @@ def test_fused_assign_spans_under_recording(banks):
     assert c["fused.batches"] == batches
     depth = [min(8, batches - k) for k in range(batches)]
     assert c["fused.pipeline_depth"] == sum(depth)
-    L = [port_fused._pick_len(max(len(r.seq) for r in recs[k:k + 4]), 256)
+    L = [max(encode.bucket_len(max(len(r.seq) for r in recs[k:k + 4])), 256)
          for k in range(0, len(recs), 4)]
     assert c["fused.h2d_bytes"] == sum(
         len(recs[k * 4:k * 4 + 4]) * (l + 4) for k, l in enumerate(L))

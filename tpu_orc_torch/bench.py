@@ -378,7 +378,7 @@ class Bench:
     def demux(self, sp5, sp27, recs: Sequence[Record], chunk: int):
         """Section 1: ``FusedDemux.assign`` over ``recs`` in chunks of
         ``chunk``. Returns the FusedDemux (section 6 reuses it)."""
-        from .demux.fused import FusedDemux, _pick_len
+        from .demux.fused import FusedDemux
         fd = FusedDemux(sp5, sp27)
         self.out["demux_names"] = (sp5.names, sp27.names)
 
@@ -392,7 +392,8 @@ class Bench:
         self.details.update(
             demux_batch=len(recs), demux_chunk=chunk, demux_min_s=t,
             demux_reads_per_s=len(recs) / t,
-            demux_len=_pick_len(max(len(r.seq) for r in recs[:chunk]), 256))
+            demux_len=max(encode.bucket_len(
+                max(len(r.seq) for r in recs[:chunk])), 256))
         return fd
 
     def demux_cpu(self, sp5, sp27, recs: Sequence[Record], n: int):
@@ -486,11 +487,11 @@ class Bench:
                  chunk: int):
         """Section 6: the multi-device paths on a mesh of this one device
         against the single-device calls."""
-        from .demux.fused import _pick_len
         from .dist.sharded import device_parallel_pairwise
         seqs = [r.seq for r in recs[:chunk]]
         amat, mlens = encode.ascii_matrix(
-            seqs, max_len=_pick_len(max(len(s) for s in seqs), 256))
+            seqs,
+            max_len=max(encode.bucket_len(max(len(s) for s in seqs)), 256))
         masks = encode.read_masks_matrix(amat, mlens)
         dev0 = "cuda:0" if self.cuda else self.device
         calls = {

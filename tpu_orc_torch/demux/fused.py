@@ -1,13 +1,13 @@
 """Fused dual-round demux: both cutadapt rounds in ONE device program.
 
 Copy of ``tpu_orc/demux/fused.py``; the device seam: ``_fused_body``
-(:128) is torch ops on the banks' device around two launches of
+is torch ops on the banks' device around two launches of
 ``align/locate.py::locate_tiles`` (the CUDA kernel on a CUDA device, its
-plain version on the CPU). ``decide_multi`` (:224) runs it on one
-stripe of the batch per device, ``decide_packed`` (:216) and
-``assign`` under ``ORC_PACKED_UPLOAD`` (:274, :341) after the 2-bit
-packed upload's unpack (:93-116), all as in ``tpu_orc``; a batch is not
-padded to the Pallas kernel's read tile (``TB``) here.
+plain version on the CPU). ``decide_multi`` runs it on one stripe of the
+batch per device, as in ``tpu_orc``; a batch is not padded to the
+Pallas kernel's read tile (``TB``) here. ``tpu_orc``'s opt-in 2-bit
+packed upload is not carried over: no run turned it on, and
+``align/pack.py`` is the port's way to send fewer bytes up.
 
 Replaces the host round-trip of the unfused path (demux.py), which for
 each batch did: upload round-1 masks -> download trim points -> slice
@@ -32,7 +32,6 @@ round 1 (:64-72) + round 2 (:91-103), both `--rc -e 0.1 --action=trim`.
 """
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -43,6 +42,7 @@ from ..io import encode
 from ..io.fastq import Record
 
 from ..align.locate import BankTables, locate_tiles
+from ..utils.inflight import dispatch_ahead
 from ..utils.profiling import count, span
 from .adapters import AdapterBank
 
@@ -177,15 +177,6 @@ class FusedDemux:
         out = self._dispatch(masks, lens).cpu().numpy()
         return FusedDecision(*(out[k, :B0] for k in range(8)))
 
-    def decide_packed(self, codes: np.ndarray, lens: np.ndarray
-                      ) -> FusedDecision:
-        """codes [B0, L] uint8 {0..4} (L a multiple of 8), lens [B0] ->
-        FusedDecision, via the 2-bit packed wire format (0.375 B/base
-        uploaded instead of 1)."""
-        B0 = codes.shape[0]
-        out = self._dispatch_packed(codes, lens).cpu().numpy()
-        return FusedDecision(*(out[k, :B0] for k in range(8)))
-
     def decide_multi(self, masks: np.ndarray, lens: np.ndarray,
                      devices) -> FusedDecision:
         """Multi-device demux decisions: batch rows striped over explicit
@@ -198,21 +189,24 @@ class FusedDemux:
         devices = [device_of(d) for d in devices]
         B0 = masks.shape[0]
         stripe = -(-B0 // len(devices))
-        lazies = []
-        for k, dev in enumerate(devices):
-            r0, r1 = k * stripe, min((k + 1) * stripe, B0)
-            if r0 >= r1:
-                break
+        stripes = [(dev, slice(k * stripe, (k + 1) * stripe))
+                   for k, dev in enumerate(devices) if k * stripe < B0]
+
+        def launch(s):
+            dev, rows = s
             # the bank tables replicate per device (memoized by
             # BankTables.tensors), SURVEY.md §2.4
-            lazies.append(_fused_body(
+            return _fused_body(
                 self.t5.tensors(dev), self.t27.tensors(dev),
-                _put(masks[r0:r1], dev, np.uint8),
-                _put(lens[r0:r1], dev, np.int32), self.t5.A, self.t27.A,
-                self._locate))
-        if not lazies:
+                _put(masks[rows], dev, np.uint8),
+                _put(lens[rows], dev, np.int32), self.t5.A, self.t27.A,
+                self._locate)
+
+        outs = [o for _, o in dispatch_ahead(
+            stripes, launch, lambda o: o.cpu().numpy(), depth=None)]
+        if not outs:
             return FusedDecision(*(np.zeros(0, np.int32) for _ in range(8)))
-        full = np.concatenate([o.cpu().numpy() for o in lazies], axis=1)
+        full = np.concatenate(outs, axis=1)
         return FusedDecision(*(full[k] for k in range(8)))
 
     def assign(self, records: Sequence[Record], batch_size: int = 2048,
@@ -221,32 +215,39 @@ class FusedDemux:
         final Record) per read — the exact per-read decisions of running
         demux.assign_reads for round 1 then round 2. Host work is fully
         vectorized: one ascii gather per chunk in, one vectorized
-        materialization out."""
+        materialization out. A batch pads to ``encode.bucket_len`` of its
+        longest read, and to at least ``max_len``. Batches go through
+        the dispatch-ahead window (``utils/inflight.py``), so the host
+        packs later batches while the card computes earlier ones;
+        ``fused.pipeline_depth`` sums the batches in flight at each
+        fetch."""
         from .demux import materialize_batch
         with span("fused.assign"):
             recs = list(records)
             out = []
-            # 2-bit packed upload is opt-in, as in tpu_orc (where it
-            # saved upload bytes but no wall time); decisions are the
-            # same either way.
-            packed = bool(os.environ.get("ORC_PACKED_UPLOAD"))
-            # Two phases: batches are packed and dispatched (CUDA
-            # launches are asynchronous) up to MAX_INFLIGHT ahead of
-            # their fetches, so the host packs later batches while the
-            # card computes earlier ones; ``fused.pipeline_depth`` counts
-            # the batches in flight at each fetch. The window bounds the
-            # read matrices staged on the device at once.
-            from collections import deque
-            MAX_INFLIGHT = 8
-            pending = deque()
 
-            def _drain_one():
-                count("fused.pipeline_depth", len(pending))
-                s, chunk, lazy, B0, amat, lens = pending.popleft()
+            def pack_and_launch(s):
+                chunk = recs[s:s + batch_size]
+                count("fused.batches")
+                with span("fused.pack"):
+                    n = max((len(r.seq) for r in chunk), default=1)
+                    amat, lens = encode.ascii_matrix(
+                        [r.seq for r in chunk],
+                        max_len=max(encode.bucket_len(n), max_len))
+                    masks = encode.read_masks_matrix(amat, lens)
+                return chunk, amat, lens, self._dispatch(masks, lens)
+
+            def fetch(handle):
+                chunk, amat, lens, lazy = handle
                 with span("fused.fetch"):
-                    full = lazy.cpu().numpy()
+                    return chunk, amat, lens, lazy.cpu().numpy()
+
+            for s, (chunk, amat, lens, full) in dispatch_ahead(
+                    range(0, len(recs), batch_size), pack_and_launch, fetch,
+                    counter="fused.pipeline_depth"):
                 with span("fused.materialize"):
-                    d = FusedDecision(*(full[k, :B0] for k in range(8)))
+                    d = FusedDecision(*(full[k, :len(chunk)]
+                                        for k in range(8)))
                     mat = materialize_batch(chunk, self.sp5.names,
                                             self.sp27.names, d.idx1, d.rc1,
                                             d.qe1, d.idx2, d.rc2, d.qs2,
@@ -257,24 +258,6 @@ class FusedDemux:
                                       int(d.err1[i]),
                                       bool(d.rc2[i]) and int(d.idx2[i]) >= 0,
                                       int(d.err2[i])))
-
-            for s in range(0, len(recs), batch_size):
-                chunk = recs[s:s + batch_size]
-                count("fused.batches")
-                with span("fused.pack"):
-                    amat, lens = encode.ascii_matrix(
-                        [r.seq for r in chunk],
-                        max_len=_pick_len(max((len(r.seq) for r in chunk),
-                                              default=1), max_len))
-                    wire = (encode.codes_matrix(amat, lens) if packed
-                            else encode.read_masks_matrix(amat, lens))
-                lazy = (self._dispatch_packed(wire, lens) if packed
-                        else self._dispatch(wire, lens))
-                pending.append((s, chunk, lazy, len(chunk), amat, lens))
-                if len(pending) >= MAX_INFLIGHT:
-                    _drain_one()
-            while pending:
-                _drain_one()
         return out
 
     def _dispatch(self, masks: np.ndarray, lens: np.ndarray):
@@ -287,48 +270,6 @@ class FusedDemux:
                                _put(lens, self.device, np.int32), self.t5.A,
                                self.t27.A, self._locate)
 
-    def _dispatch_packed(self, codes: np.ndarray, lens: np.ndarray):
-        """Packed-upload variant of :meth:`_dispatch`: the 2-bit wire
-        format up, the masks unpacked on the device."""
-        L = codes.shape[1]
-        with span("fused.launch"):
-            p2, oth = encode.pack_codes_2bit(codes, lens)
-            count("fused.h2d_bytes", p2.nbytes + oth.nbytes + 4 * len(lens))
-            masks = _unpack_to_masks(_put(p2, self.device),
-                                     _put(oth, self.device), L)
-            return _fused_body(self._a5, self._a27, masks,
-                               _put(lens, self.device, np.int32), self.t5.A,
-                               self.t27.A, self._locate)
-
 
 def _put(x, dev, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
-
-
-def _unpack_to_masks(packed2, other, L: int):
-    """Device unpack of the 2-bit wire format (io/encode.pack_codes_2bit):
-    packed2 [B, L//4] uint8 (4 bases/byte), other [B, L//8] uint8 (the
-    'non-ACGT' bitplane) -> read match masks [B, L] uint8 (1,2,4,8,16;
-    16 also past each read's length, where no locate looks)."""
-    B = packed2.shape[0]
-    p = packed2.to(torch.int32)
-    two = torch.stack([(p >> k) & 3 for k in (0, 2, 4, 6)],
-                      dim=-1).reshape(B, L)
-    o = other.to(torch.int32)
-    obits = torch.stack([(o >> k) & 1 for k in range(8)],
-                        dim=-1).reshape(B, L)
-    code = torch.where(obits != 0, 4, two)
-    return torch.bitwise_left_shift(torch.ones_like(code), code).to(
-        torch.uint8)
-
-
-def _pick_len(n: int, default_cap: int) -> int:
-    """Bucket the padded length to bound the distinct batch shapes. The
-    kernel column loop is O(L), so finer buckets around the COI amplicon
-    range (300-900 bp + adapters) directly cut scan columns (384 saves
-    25% of the columns a 512 pad wastes on ~380 bp reads)."""
-    for cap in (128, 256, 384, 512, 640, 768, 1024, 1536, 2048, 4096,
-                8192):
-        if n <= cap:
-            return max(cap, default_cap) if cap <= default_cap else cap
-    return encode.pad_to(n, 8192)

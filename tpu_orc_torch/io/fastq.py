@@ -4,7 +4,9 @@ Replaces the reference's reliance on BioPython/dnaio parsing
 (amplicon_sorter.py:519-646 ``read_file`` autodetects fasta/fastq/.gz);
 same autodetection behavior, plus batch iteration sized for device feeds.
 
-Copy of ``tpu_orc/io/fastq.py``; the code is unchanged. ``Record`` is this
+Copy of ``tpu_orc/io/fastq.py``; the port adds :func:`format_records`,
+the one place its FASTQ and FASTA text is built (``write_records``,
+stage 02's bin writers, stage 01's stream). ``Record`` is this
 package's own class: nothing in the port tests ``isinstance`` or class
 identity, so records of either package go through it.
 """
@@ -147,11 +149,16 @@ def write_records(path, records: Iterable[Record], fmt: Optional[str] = None):
     with _open(path, "wt") as fh:
         # one buffered write per file: per-record writes through the
         # gzip text wrapper were a measurable host term at 96 bins
-        if fmt == "fastq":
-            fh.write("".join(f"@{r.desc}\n{r.seq}\n+\n{r.qual or ''}\n"
-                             for r in records))
-        else:
-            fh.write("".join(f">{r.desc}\n{r.seq}\n" for r in records))
+        fh.write(format_records(records, fmt))
+
+
+def format_records(records: Iterable[Record], fmt: str) -> str:
+    """The text of ``records``: FASTQ for ``fmt`` 'fastq' (a record
+    without qualities gets an empty quality line), FASTA otherwise."""
+    if fmt == "fastq":
+        return "".join(f"@{r.desc}\n{r.seq}\n+\n{r.qual or ''}\n"
+                       for r in records)
+    return "".join(f">{r.desc}\n{r.seq}\n" for r in records)
 
 
 def iter_batches(records: Iterable[Record], batch_size: int) -> Iterator[List[Record]]:
