@@ -160,6 +160,16 @@ Phases:
      card, each timed on the host clock; locate_batch_lazy with the
      pychopper bank through the device pack equal to the host-packed
      route.
+19. the emit kernel (csrc/emit.cu) against its plain version and against
+     format_records over _make_segment's Records: on phase 17's reads
+     (one or two segments a read, both signs, some under 50 bases, some
+     reads without a quality) and on the segment plan of
+     Reorienter.run (q 0.90) over a 65,536-read block of rrna.reorient's
+     mix (orc_bench/gen_raw.py), whose four files must equal the old
+     segment and format path's; the kernel timed against its byte bound
+     (device time: 20 launches behind a spin), the block's emit on the
+     host clock (joins, uploads, kernel, download) against the old
+     path (a Record a segment, format_records).
 Phase 1 prints each kernel source's ptxas report (registers, stack
 frame). Prints a JSON line of per-kernel numbers, the card line, and last
 the result line. Exits non-zero, printing no result, when any phase fails or
@@ -1259,6 +1269,149 @@ class Smoke:
         print(f"   locate_batch_lazy (KS INFIX, pychopper bank) on the "
               f"device pack: equal to the host-packed route in all 8 "
               f"outputs, {int(got.valid.sum())} valid hits", flush=True)
+
+    # -- phase 19 --------------------------------------------------------
+    def emit_cuts(self):
+        """{L: segment cuts} over phase 17's reads: a quality a read (none
+        on every 29th), one segment a read 0-60 bases inside each end,
+        a fused read cut in two at its middle, every 13th segment cut
+        under 50 bases; the sign alternating."""
+        import numpy as np
+        rnd = np.random.default_rng(19)
+        out = {}
+        for Lc, seqs in self.long_seqs().items():
+            quals = [None if k % 29 == 0 else
+                     "".join(chr(33 + int(x))
+                             for x in rnd.integers(0, 40, len(s)))
+                     for k, s in enumerate(seqs)]
+            cuts = []
+            for k, s in enumerate(seqs):
+                n = len(s)
+                mids = [0, n // 2, n] if n > 4096 else [0, n]
+                for g in range(len(mids) - 1):
+                    a = min(mids[g] + int(rnd.integers(0, 61)), mids[g + 1])
+                    b = max(mids[g + 1] - int(rnd.integers(0, 61)), a)
+                    if (k + g) % 13 == 0:
+                        b = min(b, a + int(rnd.integers(0, 50)))
+                    cuts.append((k, a, b, (k + g) % 2 == 1,
+                                 g if len(mids) > 2 else 0))
+            read, s0, s1, neg, seg = (np.array(x) for x in zip(*cuts))
+            out[Lc] = (seqs, quals, [f"p17_{k}" for k in range(len(seqs))],
+                       read, s0, s1, neg, seg)
+        return out
+
+    def emit(self):
+        """csrc/emit.cu against emit_plain and against format_records over
+        the Records of _make_segment, on phase 17's reads and on the
+        segment plan of a 65,536-read block of rrna.reorient's mix; the
+        kernel timed against its byte bound (device time: 20 launches
+        behind a spin); the block's emit on the host clock against the
+        old segment and format path."""
+        import numpy as np
+        torch = self.torch
+        from tpu_orc_torch import _build
+        from tpu_orc_torch.demux import emit as E
+        from tpu_orc_torch.demux import reorient as R
+        from tpu_orc_torch.io import encode
+        from tpu_orc_torch.io.fastq import Record, format_records
+        for fn, regs, frame in ptxas_summary(_build.PTXAS_LOG.get("emit",
+                                                                  "")):
+            print(f"   emit ptxas {demangle(fn)}: {regs}; {frame}")
+
+        def check(args, label):
+            """(got, offs) of the cuts on the card, equal to the plain
+            version and to format_records; the kernel's device time and
+            byte bound recorded under ``label``."""
+            seqs, quals, ids, read, s0, s1, neg, seg = args
+            got, offs = E.Emitter("cuda")(*args)
+            got = bytes(got)
+            t0 = time.perf_counter()
+            want, woffs = E.Emitter("cpu")(*args)
+            pms = (time.perf_counter() - t0) * 1e3
+            if got != bytes(want) or not np.array_equal(offs, woffs):
+                raise AssertionError(f"emit {label}: differs from plain")
+            kept = [Record(i, i, s, q) for i, s, q in zip(ids, seqs, quals)]
+            text = format_records(
+                [R._make_segment(kept[c], seqs[c], quals[c], n, a, b, g)
+                 for c, a, b, n, g in zip(read.tolist(), s0.tolist(),
+                                          s1.tolist(), neg.tolist(),
+                                          seg.tolist())], "fastq")
+            if got != text.encode("utf-8"):
+                raise AssertionError(f"emit {label}: differs from "
+                                     f"format_records")
+            chunks, recs = E.pack_segments(*args)
+            data = torch.frombuffer(bytearray(b"".join(chunks)),
+                                    dtype=torch.uint8).cuda()
+            rt, ot = (torch.from_numpy(x).cuda() for x in (recs, offs))
+            total = int(offs[-1])
+            launch = lambda: E.emit_cuda(data, rt, ot, encode._COMP_TAB,
+                                         total)
+            ms, with_launch = device_ms(launch), cuda_ms(launch)
+            n_in = int(recs[:, [E.SEQ_LEN, E.QUAL_LEN]].sum()
+                       + recs[:, E.NAME_LEN].sum())
+            print(f"   emit {label}: {len(recs):,} records, {n_in:,} bytes "
+                  f"of slices in, {total:,} bytes out, {int(neg.sum()):,} "
+                  f"reversed, {int((s1 - s0 < 50).sum()):,} under 50 "
+                  f"bases: equal to plain and to format_records; kernel "
+                  f"{ms:.4f} ms ({with_launch:.4f} ms with its launch), "
+                  f"plain {pms:.3f} ms (one call)", flush=True)
+            self.record(label, "tpu_orc_torch/csrc/emit.cu",
+                        "none (tpu_orc builds a Record a segment: "
+                        "demux/reorient.py _make_segment, format)", 0, ms,
+                        pms, n_in + nbytes(rt, ot) + 256 + total, 0)
+            return ms
+
+        for Lc, args in self.emit_cuts().items():
+            check(args, f"emit_fastq_L{Lc}")
+        # a block of the cell's mix, its plan made by Reorienter.run
+        sys.path.insert(0, HERE)
+        from orc_bench import gen_raw
+        with open(os.path.join(HERE, "orc_bench", "configs",
+                               "rrna_pychopper96.json")) as fh:
+            cfg = json.load(fh)
+        with open(os.path.join(HERE, "orc_bench", "traffic",
+                               "raw_rrna_stream.json")) as fh:
+            mix = json.load(fh)
+        t0 = time.perf_counter()
+        pool = gen_raw.raw_pool(2222000019, cfg, mix)
+        recs = [Record(f"b{i}", f"b{i}", s, q)
+                for i, (s, q) in enumerate(zip(pool.seqs, pool.quals))]
+        print(f"   block of {len(recs):,} raw reads made in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        pf = os.path.join(WORK, "pychopper_bench.fa")
+        with open(pf, "w") as fh:
+            fh.write("".join(f">{n}\n{q}\n" for n, q in
+                             gen_raw.pychopper_primers(cfg["bank_seed"])))
+        reo = R.Reorienter(pf, cfg["orientation_config"], R.ReorientConfig(
+            qmin=cfg["qmin"], q=0.9, device="cuda"))
+        t0 = time.perf_counter()
+        res = reo.run(recs)
+        p = res.plan
+        print(f"   Reorienter.run on the block: {time.perf_counter() - t0:.2f}"
+              f" s, {len(p):,} segments ({res.stats})", flush=True)
+        args = (p.work, [r.qual for r in p.kept], [r.id for r in p.kept],
+                p.ci, p.s0, p.s1, p.neg, p.seg_no)
+        check(args, "emit_fastq")
+        files = res.file_bytes()
+        old = [format_records(x, "fastq").encode() for x in (
+            p.records(R.PASS), p.records(R.RESCUED), res.unclass,
+            p.records(R.SHORT))]
+        if [bytes(f) for f in files] != old:
+            raise AssertionError("the block's four files differ from the "
+                                 "old segment and format path")
+
+        def old_path():
+            for dest in (R.PASS, R.RESCUED, R.SHORT):
+                format_records(p.records(dest), "fastq").encode()
+
+        emitter = E.Emitter("cuda")
+        new = host_ms(lambda: emitter(*args), reps=3)
+        was = host_ms(old_path, reps=3)
+        n = len(recs)
+        print(f"   the block's segment records to bytes: emit on the card "
+              f"{new:.1f} ms ({new * 1e3 / n:.2f} us a read: joins, "
+              f"uploads, kernel, download), old segment and format path "
+              f"{was:.1f} ms ({was * 1e3 / n:.2f} us a read)", flush=True)
 
     # -- phase 9 ---------------------------------------------------------
     def viterbi(self):
@@ -2832,6 +2985,8 @@ def main(argv=None) -> int:
           s.locate_ks_long)
     phase("18 pack kernel vs plain, and stage 01's scan batch packed on "
           "the card", s.pack)
+    phase("19 emit kernel vs plain and format_records, and stage 01's "
+          "block emitted on the card", s.emit)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"chip_smoke: failed phases: {s.failed}", file=sys.stderr)

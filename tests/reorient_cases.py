@@ -5,10 +5,13 @@ subprocess imports too, in an interpreter where ``import jax`` and
 The reads are the benchmark cell ``rrna.reorient``'s kinds
 (``orc_bench/gen_raw.py``) cut to 260-680 bp (fused ones to ~1.4 kb),
 with more special reads than the cell's, so that a few hundred reads
-hold every kind.
+hold every kind. :func:`cut_table` makes segment cuts for the emit
+tests (``tests/test_torch_emit.py`` on the CPU, the kernel's in
+``tests/test_torch_cuda.py``).
 """
 import json
 import os
+import random
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CFG = {"insert_range": [100, 400]}
@@ -51,3 +54,30 @@ def read_outputs(outdir: str, name: str):
                                                 f"{name}_{f}.fastq")):
             got.setdefault(h.split("|", 1)[0], []).append((f, h, s, q))
     return got
+
+
+def cut_table(seed: int, reads: int = 40, max_len: int = 300):
+    """(seqs, quals, ids, read, s0, s1, neg, seg_no) of segment cuts over
+    random reads: every read cut 0-4 times anywhere, empty slices
+    included; every fourth read of IUPAC codes, lower case and X, every
+    fifth without a quality (None or ''), one id not ASCII, and every
+    sixth read's segment numbers of several digits."""
+    import numpy as np
+    rnd = random.Random(seed)
+    abc = "ACGTNRYSWKMBDHVacgtnX"
+    seqs = ["".join(rnd.choice(abc if k % 4 == 0 else "ACGT")
+                    for _ in range(rnd.randrange(0, max_len)))
+            for k in range(reads)]
+    quals = ["".join(chr(33 + rnd.randrange(40)) for _ in s)
+             if k % 5 else (None if k % 2 else "")
+             for k, s in enumerate(seqs)]
+    ids = [f"read{k}" + ("\u00e9" if k == 7 else "") for k in range(reads)]
+    cuts = []
+    for k, s in enumerate(seqs):
+        for g in range(rnd.randrange(5)):
+            a = rnd.randrange(len(s) + 1)
+            b = rnd.randrange(a, len(s) + 1)
+            cuts.append((k, a, b, rnd.random() < 0.5,
+                         g if k % 6 else rnd.choice([g, 10, 123, 4096])))
+    read, s0, s1, neg, seg_no = (np.array(c) for c in zip(*cuts))
+    return seqs, quals, ids, read, s0, s1, neg.astype(bool), seg_no

@@ -239,6 +239,72 @@ def test_locate_batch_lazy_packs_on_card(cuda, tmp_path, monkeypatch,
                                       getattr(want, field), err_msg=field)
 
 
+EMIT_CASES = ("cuts/0", "cuts/1", "cuts/2", "long/3", "long/4", "block")
+
+
+def _emit_case(case, tmp_path):
+    """(seqs, quals, ids, read, s0, s1, neg, seg_no) of one emit case:
+    ``reorient_cases.cut_table`` over short reads or over 300 reads of up
+    to 8 kb, or the segment plan of ``Reorienter.run`` (CPU) over a block
+    of ``reorient_cases``' raw stream."""
+    from reorient_cases import cut_table, records, write_primers
+    from tpu_orc_torch.demux import reorient as R
+    kind, _, seed = case.partition("/")
+    if kind == "cuts":
+        return cut_table(int(seed))
+    if kind == "long":
+        return cut_table(int(seed), reads=300, max_len=8192)
+    cfg, _, recs = records(35, 90)
+    pf = write_primers(str(tmp_path / "primers.fa"))
+    p = R.Reorienter(pf, cfg["orientation_config"], R.ReorientConfig(
+        q=0.8, min_len=420, device="cpu")).run(recs).plan
+    return (p.work, [r.qual for r in p.kept], [r.id for r in p.kept], p.ci,
+            p.s0, p.s1, p.neg, p.seg_no)
+
+
+@pytest.mark.parametrize("case", EMIT_CASES)
+def test_emit_kernel_equals_plain(cuda, tmp_path, case):
+    """csrc/emit.cu against emit_plain on the same segment cuts: the same
+    bytes and offsets; one launch, its copies counted."""
+    from tpu_orc_torch.demux import emit as E
+    from tpu_orc_torch.utils.profiling import recording
+    args = _emit_case(case, tmp_path)
+    before = E.LAUNCHES.snapshot()["emit"]
+    with recording() as rec:
+        got, goffs = E.Emitter(cuda)(*args)
+    want, woffs = E.Emitter("cpu")(*args)
+    assert E.LAUNCHES.snapshot()["emit"] == before + 1
+    np.testing.assert_array_equal(goffs, woffs)
+    assert bytes(got) == bytes(want) and len(want) == woffs[-1] > 0
+    c = rec.counters()
+    assert c["reorient.device_emits"] == 1
+    assert c["reorient.emit_records"] == len(args[3])
+    assert c["reorient.emit_d2h_bytes"] == len(want)
+    assert c["reorient.emit_h2d_bytes"] > len(want) // 2
+
+
+def test_emit_kernel_runs_and_boundaries(cuda):
+    """One run of records cut at every offset around the kernel's 16-byte
+    chunks and 8-record runs: 1-40 byte slices from every alignment of
+    the buffer, both signs, the last slice at the buffer's end (where
+    the aligned loads would leave it)."""
+    from tpu_orc_torch.demux import emit as E
+    rnd = np.random.default_rng(5)
+    seq = "".join(rnd.choice(list("ACGTN"), size=997))
+    qual = "".join(chr(33 + int(x)) for x in rnd.integers(0, 40, size=997))
+    cuts = [(a, a + n, bool(k % 2), k % 3)
+            for k, (a, n) in enumerate((a, n) for n in range(0, 41, 3)
+                                       for a in range(0, 33))]
+    cuts.append((997 - 40, 997, True, 0))
+    cuts.append((997 - 17, 997, False, 1))
+    read = np.zeros(len(cuts), np.int64)
+    s0, s1, neg, seg = (np.array(x) for x in zip(*cuts))
+    args = ([seq], [qual], ["r"], read, s0, s1, neg, seg)
+    got, _ = E.Emitter(cuda)(*args)
+    want, _ = E.Emitter("cpu")(*args)
+    assert bytes(got) == bytes(want)
+
+
 def test_locate_ks_kernel_equals_wf_kernel(cuda):
     """The two kernels agree in every mode at min_overlap 3; at 0 they
     differ only in BACK, on the empty reads (the two Pallas kernels'

@@ -11,7 +11,8 @@
 * ``reorient_file`` and ``reorient_stream`` write the same files and
   stats, in one block and in several.
 * Under ``recording()``, the spans of stage 01 nest as the stream and
-  ``Reorienter.run`` open them, and the counters agree with the stats.
+  ``Reorienter.run`` open them (the emit of a block's segments inside
+  its write), and the counters agree with the stats.
 """
 import json
 import os
@@ -154,7 +155,9 @@ def test_reorient_stream_spans_and_counters(tmp_path):
                             ("reorient.classify", "reorient.block", 2),
                             ("reorient.enumerate", "reorient.block", 3),
                             ("reorient.schedule", "reorient.block", 3),
-                            ("reorient.segment", "reorient.block", 3)):
+                            ("reorient.segment", "reorient.block", 3),
+                            # once a block with segments: not the empty one
+                            ("reorient.emit", "reorient.write", 2)):
         assert s[name]["parent"] == parent, name
         assert s[name]["n"] == n, name
     assert c["reorient.reads"] == st["total"] == len(recs)
@@ -177,6 +180,11 @@ def test_reorient_stream_spans_and_counters(tmp_path):
     assert c["reorient.fused"] == st["fused_reads"] > 0
     assert c["reorient.segments"] == (st["pass"] + st["rescued_segments"]
                                       + st["short"])
+    # the plain emit writes every segment record; no kernel, no copies
+    assert c["reorient.emit_records"] == c["reorient.segments"]
+    assert c.get("reorient.device_emits", 0) == 0
+    assert "reorient.emit_h2d_bytes" not in c
+    assert "reorient.emit_d2h_bytes" not in c
     written = sum(os.path.getsize(tmp_path / "out" / f"x_{f}.fastq")
                   for f in ref.FILES)
     assert c["reorient.out_bytes"] == written

@@ -5,7 +5,12 @@ scans (``Reorienter.autotune``, ``_enumerate_hits`` and ``run``) reach
 ``demux.py`` of this package, on the torch device named by
 ``ReorientConfig.device`` (CUDA: the locate kernel; CPU: its plain
 version), and the primer bank carries that device. They run through the
-dispatch-ahead window of ``utils/inflight.py``.
+dispatch-ahead window of ``utils/inflight.py``. A block's segments are
+no ``Record``s: ``Reorienter.run`` routes them (rule 7) into a
+:class:`SegmentPlan` of cut positions, and ``reorient_stream`` writes
+their FASTQ bytes as the plan's device emits them (``demux/emit.py``:
+CUDA, the kernel of ``csrc/emit.cu``; CPU, its plain version); the
+result's record lists are built from the plan when they are read.
 
 Replaces the reference pipeline's scripts/01_pychopper.sh:45-57:
     pychopper -b M13_seqs_for_pychopper.fa -c M13_config_for_pychopper.txt
@@ -102,6 +107,7 @@ from ..utils.profiling import count, span
 
 from . import demux
 from .adapters import AdapterBank
+from .emit import Emitter
 
 INFIX = Flag.START_WITHIN_SEQ2 | Flag.STOP_WITHIN_SEQ2
 
@@ -147,13 +153,102 @@ def autotune_knee(counts: Sequence[int]) -> float:
     return AUTOTUNE_GRID[-1]
 
 
+#: the files a segment record goes to (spec rule 7), in the order the
+#: plan and the emitted bytes hold them
+PASS, RESCUED, SHORT = range(3)
+
+
+@dataclass
+class SegmentPlan:
+    """The segment records of one block, in the order of their files
+    (pass, rescued, short) and, in each file, by kept read, then segment
+    number (spec rule 7): record k is ``work[ci[k]][s0[k]:s1[k]]`` (0 <=
+    s0 <= s1 <= the read's length), reverse-complemented where ``neg``,
+    with the same slice of the read's quality, named after
+    ``kept[ci[k]].id`` and ``seg_no``."""
+    kept: List[Record]
+    work: List[str]            # the kept reads' sequences, as scanned
+    ci: np.ndarray
+    s0: np.ndarray
+    s1: np.ndarray
+    neg: np.ndarray
+    seg_no: np.ndarray
+    dest: np.ndarray           # PASS, RESCUED or SHORT
+    emitter: Emitter
+
+    def __len__(self) -> int:
+        return len(self.ci)
+
+    def records(self, dest: int) -> List[Record]:
+        """The ``Record``s of one file, as ``tpu_orc`` builds them."""
+        return [_make_segment(self.kept[c], self.work[c], self.kept[c].qual,
+                              n, a, b, g)
+                for c, n, a, b, g in zip(
+                    *(x[self.dest == dest].tolist() for x in (
+                        self.ci, self.neg, self.s0, self.s1, self.seg_no)))]
+
+    def emit(self) -> List[np.ndarray]:
+        """The pass, rescued and short files' FASTQ bytes, emitted on the
+        plan's device (:class:`emit.Emitter`)."""
+        with span("reorient.emit"):
+            out, offs = self.emitter(
+                self.work, [r.qual for r in self.kept],
+                [r.id for r in self.kept], self.ci, self.s0, self.s1,
+                self.neg, self.seg_no)
+        return np.split(out, offs[np.searchsorted(self.dest,
+                                                  [RESCUED, SHORT])])
+
+
+def _make_segment(rec: Record, seq: str, qual, neg: bool, s0: int, s1: int,
+                  seg_no: int) -> Record:
+    seg = seq[s0:s1]
+    segq = qual[s0:s1] if qual else None
+    if neg:
+        seg = encode.revcomp(seg)
+        segq = segq[::-1] if segq else None
+    name = rec.id if seg_no == 0 else f"{rec.id}|seg{seg_no}"
+    return Record(name, name, seg, segq)
+
+
 @dataclass
 class ReorientResult:
-    passed: List[Record] = field(default_factory=list)
-    rescued: List[Record] = field(default_factory=list)
+    """One block's outcome. ``passed``, ``rescued`` and ``short`` are built
+    from ``plan`` when first read; a result made without a plan holds
+    lists of its own."""
     unclass: List[Record] = field(default_factory=list)
-    short: List[Record] = field(default_factory=list)
     stats: Dict[str, int] = field(default_factory=dict)
+    plan: Optional[SegmentPlan] = None
+    _lists: Dict[int, List[Record]] = field(default_factory=dict,
+                                            repr=False)
+
+    def _segments(self, dest: int) -> List[Record]:
+        if dest not in self._lists:
+            self._lists[dest] = ([] if self.plan is None
+                                 else self.plan.records(dest))
+        return self._lists[dest]
+
+    @property
+    def passed(self) -> List[Record]:
+        return self._segments(PASS)
+
+    @property
+    def rescued(self) -> List[Record]:
+        return self._segments(RESCUED)
+
+    @property
+    def short(self) -> List[Record]:
+        return self._segments(SHORT)
+
+    def file_bytes(self) -> List:
+        """The bytes of the four files of :data:`OUTPUTS`: the plan's
+        segments emitted on its device, the unclassified reads (and the
+        lists of a result without a plan) through ``format_records``."""
+        text = lambda recs: format_records(recs, "fastq").encode("utf-8")
+        if self.plan is None or not len(self.plan):
+            return [text(x) for x in (self.passed, self.rescued,
+                                      self.unclass, self.short)]
+        p, r, s = self.plan.emit()
+        return [p, r, text(self.unclass), s]
 
 
 def parse_orientation_config(text: str) -> List[Tuple[str, List[str]]]:
@@ -198,6 +293,7 @@ class Reorienter:
                                      else AUTOTUNE_GRID[0])
         self.names = names
         self.name_idx = {n: i for i, n in enumerate(names)}
+        self.emitter = Emitter(cfg.device)
 
     def _bank_for(self, q: float):
         if q not in self._banks:
@@ -429,17 +525,6 @@ class Reorienter:
                 out.append((k, h5[2], h3[1]))
         return out
 
-    def _make_segment(self, rec: Record, seq: str, qual, cfg_k: int,
-                      s0: int, s1: int, seg_no: int) -> Record:
-        sign = self.configs[cfg_k][0]
-        seg = seq[s0:s1]
-        segq = qual[s0:s1] if qual else None
-        if sign == "-":
-            seg = encode.revcomp(seg)
-            segq = segq[::-1] if segq else None
-        name = rec.id if seg_no == 0 else f"{rec.id}|seg{seg_no}"
-        return Record(name, name, seg, segq)
-
     # ------------------------------------------------------------------
     def run(self, records: Sequence[Record], batch_size: int = 2048
             ) -> ReorientResult:
@@ -483,9 +568,7 @@ class Reorienter:
         # a second disjoint location inside it
         width_cap = (bank.lens.astype(np.int64)
                      - bank.k_table[:, 0].astype(np.int64))[None, :]
-        work = [(ci, r.seq.upper(), r.qual) for ci, r in enumerate(kept)]
-        segments: Dict[int, List[Record]] = {ci: []
-                                             for ci in range(len(kept))}
+        work = [r.seq.upper() for r in kept]
         # slow-path candidates for full enumeration + scheduling (spec
         # rule 8): {ci: (seq, seed_hits)}
         slow: Dict[int, Tuple[str, list]] = {}
@@ -493,24 +576,25 @@ class Reorienter:
         # matching configs; classify's first-config-wins is not the
         # max-matches arrangement): {ci: seed_hits}
         sched_direct: Dict[int, list] = {}
-        fast_cand: Dict[int, Tuple[int, int, int]] = {}
+        # the verified fast path's segments, a chunk at a time: rows of
+        # (ci, cfg, s0, s1, seg_no 0)
+        fast: List[np.ndarray] = []
 
         # ONE scan pass over every read, through the dispatch-ahead
         # window: the host classifies chunk k while the card scans the
         # chunks after it
-        def scan(wchunk):
+        def scan(start):
             with span("reorient.scan"):
                 return demux.locate_batch_lazy(
-                    bank, [w[1] for w in wchunk], INFIX,
+                    bank, work[start:start + batch_size], INFIX,
                     cfg.min_primer_overlap)
 
         def fetch(handle):
             with span("reorient.fetch"):
                 return _collect_hits(handle)
 
-        for wchunk, hits in dispatch_ahead(
-                (work[s:s + batch_size]
-                 for s in range(0, len(work), batch_size)), scan, fetch):
+        for start, hits in dispatch_ahead(range(0, len(work), batch_size),
+                                          scan, fetch):
             with span("reorient.classify"):
                 cfg_idx, cs0, cs1, _, ncfg = self._classify_batch(hits)
                 anyhit = (hits["valid"] != 0).any(axis=1)
@@ -526,20 +610,22 @@ class Reorienter:
                 complete = ~bad.any(axis=1)
                 if self.FORCE_SCHEDULE:
                     complete = np.zeros_like(complete)
-                for b in np.nonzero(anyhit)[0]:
-                    ci, seq, qual = wchunk[b]
+                ok = anyhit & complete & classified & (ncfg == 1)
+                fast.append(np.stack([start + np.flatnonzero(ok),
+                                      cfg_idx[ok], cs0[ok], cs1[ok],
+                                      np.zeros(int(ok.sum()))], 1)
+                            .astype(np.int64))
+                for b in np.flatnonzero(anyhit & (~complete | (ncfg > 1))):
+                    ci = start + int(b)
                     if not complete[b]:
-                        slow[ci] = (seq, self._hits_from_row(hits, b))
-                    elif classified[b] and ncfg[b] == 1:
-                        fast_cand[ci] = (int(cfg_idx[b]), int(cs0[b]),
-                                         int(cs1[b]))
-                    elif ncfg[b] > 1:
+                        slow[ci] = (work[ci], self._hits_from_row(hits, b))
+                    else:
                         sched_direct[ci] = self._hits_from_row(hits, b)
-                    # else: hits, but no config pairs even on the complete
-                    # set -> unclassified (scheduler would find nothing)
+                # else: hits, but no config pairs even on the complete
+                # set -> unclassified (scheduler would find nothing)
                 count("reorient.unpaired",
                       int((anyhit & complete & (ncfg == 0)).sum()))
-        count("reorient.fast", len(fast_cand))
+        count("reorient.fast", sum(map(len, fast)))
         count("reorient.sched_direct", len(sched_direct))
         count("reorient.slow", len(slow))
 
@@ -562,44 +648,45 @@ class Reorienter:
             plans.update((ci, self._schedule(all_hits[ci])) for ci in slow)
 
         with span("reorient.segment"):
-            # the verified fast-path segments, then the scheduled ones
-            for ci, (k, s0, s1) in fast_cand.items():
-                segments[ci].append(self._make_segment(
-                    kept[ci], work[ci][1], kept[ci].qual, k, s0, s1, 0))
-            for ci, plan in plans.items():
-                for seg_no, (k, s0, s1) in enumerate(plan):
-                    segments[ci].append(self._make_segment(
-                        kept[ci], work[ci][1], kept[ci].qual, k, s0, s1,
-                        seg_no))
-
-            # route per read (spec rule 7): one valid segment -> pass;
-            # fused (2+) -> ALL segments to rescued; none -> unclass;
-            # under-length segments -> short either way
-            for ci, rec in enumerate(kept):
-                segs = segments[ci]
-                if not segs:
-                    stats["unclass"] += 1
-                    out.unclass.append(rec)
-                    continue
-                long_enough = [s for s in segs if len(s.seq) >= cfg.min_len]
-                for s in segs:
-                    if len(s.seq) < cfg.min_len:
-                        stats["short"] += 1
-                        out.short.append(s)
-                if len(segs) == 1:
-                    if long_enough:
-                        stats["pass"] += 1
-                        out.passed.append(long_enough[0])
-                else:
-                    stats["fused_reads"] += 1
-                    for s in long_enough:
-                        stats["rescued_segments"] += 1
-                        out.rescued.append(s)
+            out.plan = self._plan(kept, work, fast, plans)
+            nseg = np.bincount(out.plan.ci, minlength=len(kept))
+            for ci in np.flatnonzero(nseg == 0).tolist():
+                out.unclass.append(kept[ci])
+            dest = out.plan.dest
+            stats["unclass"] += int((nseg == 0).sum())
+            stats["pass"] = int((dest == PASS).sum())
+            stats["short"] = int((dest == SHORT).sum())
+            stats["fused_reads"] = int((nseg > 1).sum())
+            stats["rescued_segments"] = int((dest == RESCUED).sum())
         count("reorient.fused", stats["fused_reads"])
-        count("reorient.segments",
-              len(out.passed) + len(out.rescued) + len(out.short))
+        count("reorient.segments", len(out.plan))
         out.stats = stats
         return out
+
+    def _plan(self, kept: List[Record], work: List[str], fast,
+              plans: Dict[int, List[Tuple[int, int, int]]]) -> SegmentPlan:
+        """The block's :class:`SegmentPlan` from the fast path's rows
+        (one segment a read) and the scheduled reads' plans, routed with
+        array operations (spec rule 7): one segment -> pass; fused (2+)
+        -> ALL segments to rescued; under-length segments -> short
+        either way; a read with none is unclassified."""
+        sched = np.array([(ci, k, a, b, g) for ci, plan in plans.items()
+                          for g, (k, a, b) in enumerate(plan)],
+                         np.int64).reshape(-1, 5)
+        ci, k, s0, s1, seg_no = np.concatenate(fast + [sched]).T
+        # a slice as Python takes it: cut to the read, never reversed
+        n = np.fromiter(map(len, work), np.int64, len(work))[ci]
+        s0 = np.clip(s0, 0, n)
+        s1 = np.clip(s1, s0, n)
+        nseg = np.bincount(ci, minlength=len(kept))[ci]
+        dest = np.where(s1 - s0 < self.cfg.min_len, SHORT,
+                        np.where(nseg == 1, PASS, RESCUED))
+        # each file in kept order, a read's segments in their order
+        order = np.lexsort((seg_no, ci, dest))
+        neg = np.array([sign == "-" for sign, _ in self.configs])[k]
+        return SegmentPlan(kept, work, ci[order], s0[order], s1[order],
+                           neg[order], seg_no[order], dest[order],
+                           self.emitter)
 
 
 def _collect_hits(handle) -> Dict[str, np.ndarray]:
@@ -634,7 +721,7 @@ def reorient_stream(records: Iterable[Record], primer_fasta: str,
     from ..io.fastq import _open
     r = Reorienter(primer_fasta, config_text, cfg)
     os.makedirs(outdir, exist_ok=True)
-    handles = {k: _open(os.path.join(outdir, f"{name}_{k}.fastq"), "wt")
+    handles = {k: _open(os.path.join(outdir, f"{name}_{k}.fastq"), "wb")
                for k in OUTPUTS}
     stats: Dict[str, int] = {}
     nblocks = 0
@@ -650,11 +737,9 @@ def reorient_stream(records: Iterable[Record], primer_fasta: str,
             for k, v in res.stats.items():
                 stats[k] = stats.get(k, 0) + v
             with span("reorient.write"):
-                for k, recs in zip(OUTPUTS, (res.passed, res.rescued,
-                                             res.unclass, res.short)):
-                    text = format_records(recs, "fastq")
-                    handles[k].write(text)
-                    count("reorient.out_bytes", len(text))
+                for k, data in zip(OUTPUTS, res.file_bytes()):
+                    handles[k].write(data)
+                    count("reorient.out_bytes", len(data))
             # a short block is the last: the input has ended
             if len(block) < stream_block:
                 break
