@@ -1431,9 +1431,11 @@ class Smoke:
             lens[i] = len(c)
         lens[5] = 0                          # an empty sequence
         profs = default_euk_profiles()
+        # K 1,831 and 3,401: barrnap's euk 18S and 28S widths (the
+        # rrna.extract cell), on the block design
         rand = [H.ProfileHMM(f"random_{K}", rng.normal(0.0, 1.0, (K, 4)),
                              rng.normal(-2.0, 1.0, (K, 7)))
-                for K in (1800, H.MAX_WARP_NODES)]
+                for K in (1800, H.MAX_WARP_NODES, 1831, 3401)]
         put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
         bits = lambda x: x.view(torch.int32)
         for p in (profs["18S"], _reverse_profile(profs["28S"]), *rand):
@@ -1467,6 +1469,23 @@ class Smoke:
                   f"; best scores {[round(float(x), 2) for x in g[0][:3]]}; "
                   + ", ".join(f"{d} design {t:.3f} ms" for d, t in ms.items())
                   + f" (the wrapper's choice: {chosen}), plain {pms:.3f} ms")
+            if p.K in (1831, 3401):          # the cell's launch: 4 contigs
+                sub = args[:3] + (args[3][:4].contiguous(),
+                                  args[4][:4].contiguous())
+                g4 = H.viterbi_cuda(*sub)
+                w4 = H.viterbi_plain(*sub)
+                torch.cuda.synchronize()
+                for x, w in zip(g4, w4):
+                    if not torch.equal(bits(x), bits(w)):
+                        raise AssertionError(f"viterbi {p.name}, 4 sequences:"
+                                             f" differs from plain")
+                ms4 = cuda_ms(lambda: H.viterbi_cuda(*sub))
+                pms4 = cuda_ms(lambda: H.viterbi_plain(*sub), reps=3)
+                n_ops = OPS_PER_CELL["viterbi"] * float(sub[4].sum()) * p.K
+                self.record(f"viterbi_block_K{p.K}",
+                            "tpu_orc_torch/csrc/viterbi.cu",
+                            "tpu_orc/rrna/hmm.py:170", 0, ms4, pms4,
+                            nbytes(*sub, *g4), n_ops, FP32_OPS_PER_S)
             if p is profs["18S"]:            # the default path's profile
                 n_ops = OPS_PER_CELL["viterbi"] * float(lens.sum()) * p.K
                 self.record("viterbi", "tpu_orc_torch/csrc/viterbi.cu",

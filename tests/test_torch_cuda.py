@@ -414,6 +414,41 @@ def test_viterbi_designs_at_lane_boundaries(cuda, K):
             assert torch.equal(got[2], want[2]), (kind, design)
 
 
+@pytest.mark.parametrize("B", [2, 6])
+@pytest.mark.parametrize("K", [1831, 3401, H.MAX_NODES])
+def test_viterbi_block_design_at_euk_widths(cuda, K, B):
+    """The block design at barrnap's euk widths (18S 1,831 and 28S 3,401
+    nodes: 8 and 16 nodes a thread, the tables in opt-in shared memory)
+    and at MAX_NODES, on B sequences of up to 3,584 positions, as stage
+    05a launches it for 1-3 contigs: equal to viterbi_plain bit for bit in
+    score, end position and end node, on random, all-tie and block-tie
+    profiles; the design the wrapper picks."""
+    assert H.choose_viterbi_design(K) == "block"
+    bits = lambda x: x.view(torch.int32)
+    lens = np.array([3584, 3201, 3583, 1, 3300, 0][:B], np.int32)
+    for kind in ("rand", "tie", "blocks"):
+        m, t, S, _, _ = viterbi_case(K, kind, cuda)
+        rng = np.random.default_rng(7000 + K + B)
+        seqs = rng.integers(0, 4, (B, 3584)).astype(np.uint8)
+        if kind == "rand":               # the profile's consensus, planted
+            cons = m.argmax(dim=1).to(torch.uint8).cpu().numpy()
+            seqs[0, 200:200 + min(K, 3000)] = cons[:3000]
+        if kind == "blocks":
+            seqs[:, 0] = 3
+        for b, n in enumerate(lens):
+            seqs[b, n:] = 4
+        args = (m, t, S, torch.from_numpy(seqs).to(cuda),
+                torch.from_numpy(lens).to(cuda))
+        want = H.viterbi_plain(*args)
+        before = H.LAUNCHES.snapshot()["scan_block"]
+        got = H.viterbi_tiles(*args)
+        torch.cuda.synchronize()
+        assert H.LAUNCHES.snapshot()["scan_block"] == before + 1
+        assert torch.equal(bits(got[0]), bits(want[0])), kind
+        assert torch.equal(got[1], want[1]), kind
+        assert torch.equal(got[2], want[2]), kind
+
+
 def locate_boundary_case(kind, mode, min_overlap, device, n_reads=120,
                          lengths=(0, 1, 31, 32, 33, 63, 64, 65, 97, 301, 0)):
     """(tables, reads_T, lens, A) for the locate kernels' lane

@@ -12,7 +12,12 @@
   the XLA Myers in ``test_torch_myers.py``);
 * the finders give equal hits field by field, and stage 05a
   (``stage_rrna``) and the ``rrna`` subcommand write byte-identical
-  directories in default, exemplar, HMMER3 and .cm modes.
+  directories in default, exemplar, HMMER3 and .cm modes;
+* stage 05a's spans (``rrna.extract`` and under it ``rrna.model``,
+  ``.pack``, ``.viterbi``, ``.hits``, ``.write``) and counters
+  (``rrna.contigs``, ``rrna.hits``, ``viterbi.cells_launched``,
+  ``viterbi.launches/<design>/K<K>``) inside ``recording()``, nothing
+  outside it, and the same files either way.
 
 Tolerance: none, except where the float64 host Viterbi is compared with a
 float32 scan (2e-2, the reference's own). Inputs are made with numpy from
@@ -345,3 +350,72 @@ def test_make_rrna_plate_is_seeded_rdna():
         for t in ins:
             assert 3150 <= len(t) <= 3700
             assert ref_anchors.ANCHOR_18S_END in t
+
+
+# ---------------------------------------------------------------------------
+# stage 05a's spans and counters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["hmm", "cm"])
+def test_stage_rrna_spans_and_counters(tmp_path, mode):
+    """stage_rrna in profile mode inside ``recording()``: every 05a span
+    nests under ``rrna.extract`` (one a call); ``rrna.contigs`` counts
+    the contigs read, ``rrna.hits`` the hits, ``viterbi.cells_launched``
+    B x padded L x K over the forward and reversed scan of each gene, and
+    ``viterbi.launches/plain/K<K>`` those scans; a recorded and an
+    unrecorded run write byte-identical directories."""
+    from tpu_orc_torch.utils.profiling import recording
+    recs = rdna_records(8, n=2) + fixture_records(9)
+    fa = str(tmp_path / "cleaned.fasta")
+    write_records(fa, recs, fmt="fasta")
+    cfg = port_stages.PipelineConfig(str(tmp_path), device="cpu",
+                                     **{f"rrna_{mode}": HMM if mode == "hmm"
+                                        else CM})
+    plain = port_stages.stage_rrna(fa, str(tmp_path / "plain"), "BC01", cfg)
+    with recording() as rec:
+        got = port_stages.stage_rrna(fa, str(tmp_path / "rec"), "BC01", cfg)
+    assert fields(got) == fields(plain) and got["18S"] and got["28S"]
+    assert_same_tree(str(tmp_path / "rec"), str(tmp_path / "plain"))
+    spans = rec.spans()
+    assert spans["rrna.extract"]["n"] == 1
+    assert spans["rrna.extract"]["parent"] is None
+    for name, n in (("rrna.model", 1), ("rrna.pack", 4), ("rrna.viterbi", 4),
+                    ("rrna.hits", 2), ("rrna.write", 3)):
+        assert spans[name]["parent"] == "rrna.extract", name
+        assert spans[name]["n"] == n, name
+    inner = sum(spans[n]["total_s"] for n in spans if n != "rrna.extract")
+    assert inner <= spans["rrna.extract"]["total_s"]
+    c = rec.counters()
+    if mode == "hmm":
+        models = {m.name: m for m in hmm.parse_hmmer3(HMM)}
+        Ks = [models[f"{g}_rRNA"].K for g in ("18S", "28S")]
+    else:
+        from tpu_orc_torch.rrna.cm import parse_cm, profiles_by_gene
+        bygene = profiles_by_gene(parse_cm(CM))
+        Ks = [bygene[g].K for g in ("18S", "28S")]
+    L = -(-max(len(r.seq) for r in recs) // 128) * 128
+    assert c["rrna.contigs"] == len(recs)
+    assert c["rrna.hits"] == len(got["18S"]) + len(got["28S"])
+    assert c["viterbi.cells_launched"] == sum(2 * 2 * len(recs) * L * K
+                                              for K in Ks)
+    for K in set(Ks):
+        assert c[f"viterbi.launches/plain/K{K}"] == 2 * Ks.count(K)
+    assert not any(k.startswith("viterbi.launches/") and "/plain/" not in k
+                   for k in c)
+
+
+def test_stage_rrna_records_nothing_outside_recording(tmp_path):
+    """Outside ``recording()`` the 05a spans are the shared null context
+    and its counters are dropped: a recorder opened afterwards starts
+    empty."""
+    from tpu_orc_torch.utils import profiling
+    from tpu_orc_torch.utils.profiling import recording
+    fa = str(tmp_path / "in.fasta")
+    write_records(fa, fixture_records(12), fmt="fasta")
+    cfg = port_stages.PipelineConfig(str(tmp_path), device="cpu",
+                                     rrna_hmm=HMM)
+    assert profiling.span("rrna.extract") is profiling._NULL
+    port_stages.stage_rrna(fa, str(tmp_path / "a"), "B1", cfg)
+    with recording() as rec:
+        pass
+    assert rec.spans() == {} and rec.counters() == {}

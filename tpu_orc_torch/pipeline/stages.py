@@ -38,6 +38,7 @@ from typing import Dict, Optional
 import torch
 
 from ..io.fastq import read_records
+from ..utils.profiling import count, span
 from .qc import write_stats
 from .summary import summarize_barcode_dir
 
@@ -193,31 +194,40 @@ def stage_rrna(cleaned_fasta: str, outdir: str, barcode: str,
                cfg: PipelineConfig):
     """05a: HMMER3 model file > exemplar FASTAs > conserved-core block
     profiles with single-anchor fallback (zero-config default;
-    rrna/profiles.py), on ``cfg.device``."""
+    rrna/profiles.py), on ``cfg.device``. Span ``rrna.extract`` (the
+    call; ``rrna.model`` reading the model files, and under it the
+    finders' ``rrna.pack``/``.viterbi``/``.hits`` and ``rrna.write``),
+    counters ``rrna.contigs`` and ``rrna.hits``."""
     from ..io.fastq import read_fasta
     from ..rrna.extract import extract_rrna
-    ex18 = ([r.seq for r in read_fasta(cfg.rrna_exemplars_18s)]
-            if cfg.rrna_exemplars_18s else None)
-    ex28 = ([r.seq for r in read_fasta(cfg.rrna_exemplars_28s)]
-            if cfg.rrna_exemplars_28s else None)
-    p18 = p28 = None
-    if cfg.rrna_cm:
-        # pybarrnap/infernal variant (README.md:50-51): Rfam-layout .cm
-        # models, scored via each CM's embedded p7 filter (rrna/cm.py)
-        from ..rrna.cm import parse_cm, profiles_by_gene
-        bygene = profiles_by_gene(parse_cm(cfg.rrna_cm))
-        p18 = bygene.get("18S")
-        p28 = bygene.get("28S")
-    elif cfg.rrna_hmm:
-        from ..rrna.hmm import parse_hmmer3
-        models = {m.name: m for m in parse_hmmer3(cfg.rrna_hmm)}
-        p18 = models.get("18S_rRNA")
-        p28 = models.get("28S_rRNA")
-    records = list(read_records(cleaned_fasta))
-    return extract_rrna(records, os.path.join(outdir, "rRNA_genes"),
-                        barcode, exemplars_18s=ex18, exemplars_28s=ex28,
-                        profile_18s=p18, profile_28s=p28,
-                        device=cfg.device)
+    with span("rrna.extract"):
+        with span("rrna.model"):
+            ex18 = ([r.seq for r in read_fasta(cfg.rrna_exemplars_18s)]
+                    if cfg.rrna_exemplars_18s else None)
+            ex28 = ([r.seq for r in read_fasta(cfg.rrna_exemplars_28s)]
+                    if cfg.rrna_exemplars_28s else None)
+            p18 = p28 = None
+            if cfg.rrna_cm:
+                # pybarrnap/infernal variant (README.md:50-51): Rfam-layout
+                # .cm models, scored via each CM's embedded p7 filter
+                # (rrna/cm.py)
+                from ..rrna.cm import parse_cm, profiles_by_gene
+                bygene = profiles_by_gene(parse_cm(cfg.rrna_cm))
+                p18 = bygene.get("18S")
+                p28 = bygene.get("28S")
+            elif cfg.rrna_hmm:
+                from ..rrna.hmm import parse_hmmer3
+                models = {m.name: m for m in parse_hmmer3(cfg.rrna_hmm)}
+                p18 = models.get("18S_rRNA")
+                p28 = models.get("28S_rRNA")
+        records = list(read_records(cleaned_fasta))
+        count("rrna.contigs", len(records))
+        hits = extract_rrna(records, os.path.join(outdir, "rRNA_genes"),
+                            barcode, exemplars_18s=ex18, exemplars_28s=ex28,
+                            profile_18s=p18, profile_28s=p28,
+                            device=cfg.device)
+        count("rrna.hits", sum(len(h) for h in hits.values()))
+        return hits
 
 
 def stage_reorganise_cois(outdir: str) -> Dict[str, str]:

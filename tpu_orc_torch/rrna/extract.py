@@ -35,6 +35,7 @@ import numpy as np
 
 from ..io import encode
 from ..io.fastq import Record, read_fasta, write_records
+from ..utils.profiling import span
 from .hmm import ProfileHMM, viterbi_scan
 
 
@@ -143,21 +144,32 @@ def find_gene_profile(records: Sequence[Record], profile: ProfileHMM,
                       device="cuda") -> List[RRNAHit]:
     if not records:
         return []
-    seqs = []
-    for r in records:
-        seqs.append(r.seq.upper())
-        seqs.append(encode.revcomp(r.seq.upper()))
-    packed, lens = _pack(seqs)
+    with span("rrna.pack"):
+        seqs = []
+        for r in records:
+            seqs.append(r.seq.upper())
+            seqs.append(encode.revcomp(r.seq.upper()))
+        packed, lens = _pack(seqs)
     score, end_pos, _ = viterbi_scan(profile, packed, lens, device)
     # start via reversed sequences against the reversed profile
-    rev_profile = ProfileHMM(profile.name,
-                             profile.match_scores[::-1].copy(),
-                             profile.t[::-1].copy())
-    rpacked = np.full_like(packed, 4)
-    for i in range(len(seqs)):
-        n = int(lens[i])
-        rpacked[i, :n] = packed[i, :n][::-1]
+    with span("rrna.pack"):
+        rev_profile = ProfileHMM(profile.name,
+                                 profile.match_scores[::-1].copy(),
+                                 profile.t[::-1].copy())
+        rpacked = np.full_like(packed, 4)
+        for i in range(len(seqs)):
+            n = int(lens[i])
+            rpacked[i, :n] = packed[i, :n][::-1]
     rscore, rend, _ = viterbi_scan(rev_profile, rpacked, lens, device)
+    with span("rrna.hits"):
+        return _profile_hits(records, gene, min_score, score, end_pos,
+                             rend, lens)
+
+
+def _profile_hits(records, gene, min_score, score, end_pos, rend, lens
+                  ) -> List[RRNAHit]:
+    """Each contig's best strand over ``min_score``: its interval from
+    the forward scan's end and the reversed scan's end."""
     hits: List[RRNAHit] = []
     for ri, rec in enumerate(records):
         best = None
@@ -222,13 +234,15 @@ def extract_rrna(records: Sequence[Record], outdir: str, name: str,
         else:
             continue
         out[gene] = hits
-        recs = [Record(f"{gene}_rRNA::{h.contig_id}:{h.start}-{h.end}",
-                       f"{gene}_rRNA::{h.contig_id}:{h.start}-{h.end}"
-                       f"({h.strand})", h.seq) for h in hits]
-        os.makedirs(outdir, exist_ok=True)
-        write_records(os.path.join(outdir, f"{name}_{gene}.fa"), recs,
-                      fmt="fasta")
-    write_barrnap_sidecars(out, outdir, name)
+        with span("rrna.write"):
+            recs = [Record(f"{gene}_rRNA::{h.contig_id}:{h.start}-{h.end}",
+                           f"{gene}_rRNA::{h.contig_id}:{h.start}-{h.end}"
+                           f"({h.strand})", h.seq) for h in hits]
+            os.makedirs(outdir, exist_ok=True)
+            write_records(os.path.join(outdir, f"{name}_{gene}.fa"), recs,
+                          fmt="fasta")
+    with span("rrna.write"):
+        write_barrnap_sidecars(out, outdir, name)
     return out
 
 

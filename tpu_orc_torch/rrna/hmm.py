@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import count, span
 
 NEG = -1e9
 DD_FLOOR = -30.0  # finite clamp for 'impossible' D->D (see dd_prefix)
@@ -349,7 +350,16 @@ def viterbi_cuda(match_s, trans, S, seqs, lens, design: str | None = None):
                      bnode.data_ptr(), stream)
     _build.check(err, f"viterbi kernel ({design} design)")
     LAUNCHES.add(f"scan_{design}", dev)
+    _count_launch(design, B, L, K)
     return best, bpos, bnode
+
+
+def _count_launch(design: str, B: int, L: int, K: int) -> None:
+    """The counters of one scan: ``viterbi.cells_launched`` (B x L x K,
+    the padded length) and ``viterbi.launches/<design>/K<K>`` ("plain" for
+    the CPU version)."""
+    count("viterbi.cells_launched", B * L * K)
+    count(f"viterbi.launches/{design}/K{K}")
 
 
 def viterbi_tiles(match_s, trans, S, seqs, lens):
@@ -371,6 +381,8 @@ def viterbi_tiles(match_s, trans, S, seqs, lens):
     if any(t.device != seqs.device for t in ts):
         raise ValueError("viterbi inputs lie on more than one device")
     if seqs.device.type == "cpu":
+        if seqs.shape[0]:
+            _count_launch("plain", *seqs.shape, K)
         return viterbi_plain(*ts)
     if seqs.device.type != "cuda":
         raise ValueError(f"no viterbi kernel for device {seqs.device}")
@@ -383,17 +395,21 @@ def viterbi_scan(profile: ProfileHMM, seqs_codes: np.ndarray,
                  lens: np.ndarray, device="cuda"
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Score contigs [B, L] against the profile on ``device``. Returns
-    (score float32, end_pos int32, end_node int32) numpy arrays [B]."""
+    (score float32, end_pos int32, end_node int32) numpy arrays [B]. The
+    span ``rrna.viterbi``: the tables and sequences up, the scan, the
+    results back."""
     lens = np.asarray(lens, np.int32)
     if len(lens) and (lens.min() < 0 or lens.max() > seqs_codes.shape[1]):
         raise ValueError("sequence lengths must lie in [0, L]")
     dev = torch.device(device)
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    best, bpos, bnode = viterbi_tiles(
-        put(np.asarray(profile.match_scores, np.float32)),
-        put(np.asarray(profile.t, np.float32)), put(dd_prefix(profile.t)),
-        put(np.asarray(seqs_codes, np.uint8)), put(lens))
-    return best.cpu().numpy(), bpos.cpu().numpy(), bnode.cpu().numpy()
+    with span("rrna.viterbi"):
+        best, bpos, bnode = viterbi_tiles(
+            put(np.asarray(profile.match_scores, np.float32)),
+            put(np.asarray(profile.t, np.float32)),
+            put(dd_prefix(profile.t)),
+            put(np.asarray(seqs_codes, np.uint8)), put(lens))
+        return best.cpu().numpy(), bpos.cpu().numpy(), bnode.cpu().numpy()
 
 
 def profile_from_reference(p) -> ProfileHMM:
